@@ -17,9 +17,12 @@ Conventions:
   through its kernel, a tensor on the CPU through the plain version. The
   CLI's ``--device {cuda,cpu}`` picks the device.
 
-The port imports `torch` and never `jax`. From the JAX package it uses only
-the jax-free host modules (`keyhunt_tpu.ref`, `.io`, `.native`, `.stats`,
-`.util`).
+The port imports `torch` and never `jax`, and nothing of the JAX package,
+not even its jax-free host modules: it keeps its own copies of them under
+the same names (`ref.ecc`, `ref.hashes`, `io.base58`, `io.results`,
+`io.targets`, `stats`, `util`) and its own binding of the native host
+library (`native`, built from native/keyhunt_native.cpp at first use).
+Only the tests import both packages.
 """
 
 __version__ = "0.1.0"

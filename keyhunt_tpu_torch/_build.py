@@ -25,7 +25,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)),
                           "build", "keyhunt_tpu_torch")
-SOURCES = ("field_kernels.cu", "jacwalk.cu")
+SOURCES = ("field_kernels.cu", "jacwalk.cu", "hash160.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,8 @@ _SIGNATURES = {
     "kh_field_sqr": [_VP, _VP, _I64, _VP],
     "kh_batch_inv": [_VP, _VP, _I64, _INT, _VP],
     "kh_giant_scan": [_VP] * 9 + [_I64, _INT, _VP, _VP],
+    "kh_hash160_both": [_VP, _VP, _VP, _I64, _VP],
+    "kh_hash160_uncompressed": [_VP, _VP, _VP, _I64, _VP],
 }
 
 #: kernel launches by kernel name; each wrapper adds one where it launches

@@ -1,9 +1,10 @@
 """secp256k1 point operations on limb tensors, and the host point tables.
 
-Counterpart of keyhunt_tpu/ops/curve.py for what the BSGS slice uses:
-`add_with_inv` on the device, and the host tables `offset_table`,
-`point_const` and `points_for_keys`, built from `keyhunt_tpu.ref.ecc` (or
-the native host library when it is built) as numpy uint32 limbs.
+Counterpart of keyhunt_tpu/ops/curve.py for what the BSGS and walker
+slices use: `add_with_inv` and `endo_x` on the device, and the host tables
+`offset_table`, `offset_table_strided`, `point_const` and
+`points_for_keys`, built from the port's `ref.ecc` (or the native host
+library when it is built) as numpy uint32 limbs.
 """
 
 from __future__ import annotations
@@ -12,9 +13,8 @@ import functools
 
 import numpy as np
 
-from keyhunt_tpu import native
-from keyhunt_tpu.ref import ecc
-
+from .. import native
+from ..ref import ecc
 from . import field, u256
 
 
@@ -28,6 +28,15 @@ def add_with_inv(px, py, qx, qy, inv_dx, want_y: bool = True):
         return x3
     y3 = field.sub(field.mul(lam, field.sub(px, x3)), py)
     return x3, y3
+
+
+def endo_x(x):
+    """GLV endomorphism X-maps: (beta*x, beta^2*x), lazy -- the points of
+    keys lambda*k and lambda^2*k (`keyhunt.cpp:3408-3440`, the x6 search
+    of address mode). Two field multiplies: kernel K1 on CUDA."""
+    beta = field.const(field.BETA_INT, x.device).reshape((8,) + (1,) * (x.dim() - 1))
+    beta2 = field.const(field.BETA2_INT, x.device).reshape(beta.shape)
+    return field.mul(beta, x), field.mul(beta2, x)
 
 
 def points_for_keys(keys) -> tuple[np.ndarray, np.ndarray]:
@@ -47,7 +56,14 @@ def points_for_keys(keys) -> tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def offset_table(w: int) -> tuple[np.ndarray, np.ndarray]:
     """(x, y) uint32 arrays of shape (8, w) for the points j*G, j = 1..w."""
-    return points_for_keys(range(1, w + 1))
+    return offset_table_strided(w, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def offset_table_strided(w: int, stride: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """(x, y) of j*(stride*G) for j = 1..w -- the walker's offset table
+    (its stride is the pivot count times the -I key stride)."""
+    return points_for_keys([j * stride for j in range(1, w + 1)])
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,6 +28,11 @@ P_INT = 2**256 - 2**32 - 977
 N_INT = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 D_INT = 2**32 + 977          # 2^256 mod p
 
+# GLV endomorphism X-map constants (SECP256K1.cpp:167-195): beta*X (beta^2*X)
+# is the X of the point of key lambda*k (lambda^2*k); the x6 address search
+BETA_INT = 0x7AE96A2B657C07106E64479EAC3434E99CF0497512F58995C1396C28719501EE
+BETA2_INT = 0x851695D49A83F8EF919BB86153CBCB16630FB68AED0A766A3EC693D68E6AFA40
+
 #: elements per Montgomery group in `batch_inv` (kernel K3 and its plain
 #: version): one Fermat inversion per group, and a zero (or p) in the
 #: input turns its whole group -- and only its group -- into zeros. Of

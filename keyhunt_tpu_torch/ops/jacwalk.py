@@ -25,9 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from keyhunt_tpu.ref import ecc
-
 from .. import _build
+from ..ref import ecc
 from . import field, u256
 from .cuda_field import check_limbs
 

@@ -1,8 +1,10 @@
-"""Packed bucket slabs: host build, device probe, and hit extraction.
+"""Target tables and bucket slabs: host build, device probe, hit extraction.
 
-Counterpart of the parts of keyhunt_tpu/ops/match.py that BSGS runs. The
-slab holds one uint32 per slot: the 32 fragment bits just below the
-bucket-index bits,
+Counterpart of the parts of keyhunt_tpu/ops/match.py that BSGS and the
+walker run. The walker probes two-word slabs (`build_buckets`,
+`probe_buckets`: the full 64-bit first words of each target hash or X).
+BSGS probes packed slabs, which hold one uint32 per slot: the 32 fragment
+bits just below the bucket-index bits,
 
     residual = (w0 << bbits) | (w1 >> shift),     bbits = 32 - shift,
 
@@ -22,6 +24,65 @@ import numpy as np
 import torch
 
 from .u256 import widen, narrow
+
+
+def build_table(pairs: list[tuple[int, int]]) -> tuple[np.ndarray, np.ndarray]:
+    """Host: list of (w0, w1) uint32 pairs -> lexicographically sorted
+    parallel arrays (t0, t1), padded to a power-of-two length with
+    0xFFFFFFFF sentinels (same arrays as keyhunt_tpu's). A sentinel can
+    only match a query equal to 2^64-1, which the exact host verify
+    rejects like any other false positive."""
+    n = max(len(pairs), 1)
+    size = 1 << (n - 1).bit_length()
+    t0 = np.full(size, 0xFFFFFFFF, np.uint32)
+    t1 = np.full(size, 0xFFFFFFFF, np.uint32)
+    if pairs:
+        arr = np.array(sorted(pairs), dtype=np.uint64)
+        t0[: len(pairs)] = arr[:, 0].astype(np.uint32)
+        t1[: len(pairs)] = arr[:, 1].astype(np.uint32)
+    return t0, t1
+
+
+def build_buckets(t0, t1, avg: int = 32):
+    """Host: sorted (t0, t1) arrays -> direct-indexed two-word bucket slabs.
+
+    Returns (slab0, slab1, shift): slab* (nbuckets, maxlen) uint32 with
+    0xFFFFFFFF sentinel padding, bucket index = w0 >> shift. maxlen is the
+    largest bucket, so nothing overflows. The same slabs as keyhunt_tpu's
+    (whose padded-permutation output served a BSGS path the port does not
+    have)."""
+    m = int(t0.shape[0])
+    # nb >= 2 keeps shift <= 31
+    nb = 1 << max((m // max(avg, 1)).bit_length() - 1, 1)
+    shift = 32 - (nb.bit_length() - 1)
+    b = (t0.astype(np.uint32) >> np.uint32(shift)).astype(np.int64)
+    counts = np.bincount(b, minlength=nb)
+    maxlen = max(int(counts.max()), 1)
+    starts = np.zeros(nb, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    slots = b * maxlen + np.arange(m, dtype=np.int64) - np.repeat(starts, counts)
+    slab0 = np.full(nb * maxlen, 0xFFFFFFFF, np.uint32)
+    slab1 = np.full(nb * maxlen, 0xFFFFFFFF, np.uint32)
+    slab0[slots] = t0
+    slab1[slots] = t1
+    return slab0.reshape(nb, maxlen), slab1.reshape(nb, maxlen), shift
+
+
+def probe_buckets(slab0: torch.Tensor, slab1: torch.Tensor, w0: torch.Tensor,
+                  w1: torch.Tensor, shift: int, chunks: int = 1):
+    """(hit bool, pos int64) for each query against two-word slabs: one row
+    gather per slab and a compare over the bucket; pos = bucket*maxlen +
+    first matching slot. Exact (the whole bucket is scanned). The gathers
+    materialise (queries, maxlen) temporaries, so the queries run in
+    `chunks` sequential slices (search.bsgs.probe_chunks_for sizes them)."""
+    maxlen = slab0.shape[1]
+    hits, poss = [], []
+    for a, b in zip(w0.chunk(chunks), w1.chunk(chunks)):
+        bidx = widen(a) >> shift
+        eq = (slab0[bidx] == a.unsqueeze(1)) & (slab1[bidx] == b.unsqueeze(1))
+        hits.append(eq.any(dim=1))
+        poss.append(bidx * maxlen + torch.argmax(eq.to(torch.uint8), dim=1))
+    return torch.cat(hits), torch.cat(poss)
 
 
 def pack_residual(w0, w1, shift: int):
@@ -87,6 +148,15 @@ def first_set(mask: torch.Tensor, k: int) -> torch.Tensor:
                          device=idx.device)
         idx = torch.cat([idx, pad], dim=-1)
     return idx
+
+
+def topk_indices(mask_flat: torch.Tensor, k: int):
+    """(idx, count): the first k set positions of a flat hit mask (int64,
+    ascending, -1 padded) and the number of set positions as a () int64
+    tensor. keyhunt_tpu gates its `lax.top_k` behind a `lax.cond` on the
+    count; here the extraction runs unconditionally (`first_set`), so no
+    host sync on the count sits in the dispatch queue."""
+    return first_set(mask_flat, k), mask_flat.sum(dtype=torch.int64)
 
 
 def topk_with_payload(mask: torch.Tensor, payload: torch.Tensor, k: int):

@@ -1,1 +1,2 @@
-"""Search engines built on the ops layer (BSGS)."""
+"""Search engines built on the ops layer: BSGS (`bsgs`) and the brute-force
+walker (`walker`, `engine`, `vanity`)."""

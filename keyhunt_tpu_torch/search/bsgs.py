@@ -35,13 +35,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from keyhunt_tpu import native
-from keyhunt_tpu.io.results import ResultSink
-from keyhunt_tpu.ref import ecc
-from keyhunt_tpu.stats import SpeedMeter, si
-
-from ..device import to_device
+from .. import native
+from ..device import resolve_device, to_device
+from ..io.results import ResultSink
+from ..ref import ecc
+from ..stats import SpeedMeter, si
 from ..ops import curve, field, jacwalk, match, u256
+from ..trace import span
 
 #: degenerate-lane report slots per step (lanes whose point x-equals the
 #: advance point -- each IS a solved key, resolved analytically on host)
@@ -203,14 +203,15 @@ def _builder_step(A: int, W: int, S: int, device: torch.device):
 def build_baby_table(m: int, pivots: int = 64, width: int = 2048,
                      steps: int = 4, depth: int | None = None,
                      progress: bool = False,
-                     device: torch.device | str = "cpu") -> BabyTable:
+                     device: torch.device | str = "cuda") -> BabyTable:
     """Build the j*G fragment table for j = 1..m.
 
     Keys 1..W+1 come from the host offset table; the rest are generated on
-    `device` in batches of A*W*S keys (A is capped so one batch does not
+    `device` (the CUDA device unless the caller names one; raises without
+    a GPU) in batches of A*W*S keys (A is capped so one batch does not
     overshoot m by more than a pivot's worth). The argsort uses the native
     radix sort when the host library is built."""
-    device = torch.device(device)
+    device = resolve_device(device)
     W, S = width, steps
     frags0 = np.zeros((2, m), dtype=np.uint32)
     host_n = min(W + 1, m)
@@ -404,24 +405,29 @@ def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
     on the device with no host sync. payload is one int64 vector,
     [lanes(K) | jsel(K) | count(1) | flags(S*DEGEN_SLOTS)]: flat query
     indices of the first K hits, their padded slab positions, the hit
-    count, and per step the first DEGEN_SLOTS flagged lanes (-1 pad)."""
+    count, and per step the first DEGEN_SLOTS flagged lanes (-1 pad).
+    Each stage runs inside a `trace.span` named "bsgs.<stage>"."""
     B, S, K = cfg.lanes, cfg.steps, cfg.max_hits
     negadv = ecc.ec_neg(ecc.ec_mul(B * cfg.stride))
 
     def run(X, Y, Z, slab):
-        Xo, Yo, Zo, xs, zs, dg = jacwalk.giant_scan(
-            X, Y, Z, negadv[0], negadv[1], S)
-        xa = jacwalk.to_affine_x(xs, zs)             # (8, S*L) canonical
+        with span("bsgs.giant_scan"):
+            Xo, Yo, Zo, xs, zs, dg = jacwalk.giant_scan(
+                X, Y, Z, negadv[0], negadv[1], S)
+        with span("bsgs.to_affine"):
+            xa = jacwalk.to_affine_x(xs, zs)         # (8, S*L) canonical
         w0, w1 = xa[7], xa[6]                         # step-major queries
-        flags = match.first_set(dg, DEGEN_SLOTS)
         hits, poss = [], []
-        for a, b in zip(w0.chunk(probe_chunks), w1.chunk(probe_chunks)):
-            h, p = match.probe_buckets_packed(slab, a, b, shift)
-            hits.append(h)
-            poss.append(p)
-        lanes, jsel, count = match.topk_with_payload(
-            torch.cat(hits), torch.cat(poss), K)
-        payload = torch.cat([lanes, jsel, count, flags.reshape(-1)])
+        with span("bsgs.probe"):
+            for a, b in zip(w0.chunk(probe_chunks), w1.chunk(probe_chunks)):
+                h, p = match.probe_buckets_packed(slab, a, b, shift)
+                hits.append(h)
+                poss.append(p)
+        with span("bsgs.topk"):
+            flags = match.first_set(dg, DEGEN_SLOTS)
+            lanes, jsel, count = match.topk_with_payload(
+                torch.cat(hits), torch.cat(poss), K)
+            payload = torch.cat([lanes, jsel, count, flags.reshape(-1)])
         return Xo, Yo, Zo, payload
 
     return run
@@ -486,7 +492,7 @@ class BsgsEngine:
                  start: int, end: int, sink: ResultSink | None = None,
                  quiet: bool = False, rng_seed: int | None = None,
                  stats_every: float = 5.0, matrix: bool = False,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if not end > start >= 1:
             raise ValueError(f"bad range {start:#x}:{end:#x}")
         if cfg.table_partitions > 1:
@@ -495,7 +501,7 @@ class BsgsEngine:
             raise _not_ported("ggsb with more than one block")
         self.cfg = cfg
         self.tbl = tbl
-        self.device = torch.device(device)
+        self.device = resolve_device(device)     # raises without a GPU
         self.targets = list(targets)          # [(x, y) points]
         self.start, self.end = start, end
         self.sink = sink or ResultSink(quiet=quiet)
@@ -778,7 +784,7 @@ def auto_lanes(m: int, steps: int, start: int, end: int,
 def derive_m(n_value: int | None, k: int) -> int:
     """Reference parameter mapping (`keyhunt.cpp:1450-1607`): N keys per
     cycle (default 2^44), M = sqrt(N), baby table m = k*M."""
-    from keyhunt_tpu.util import validate_nk, print_nk_table
+    from ..util import validate_nk, print_nk_table
     n = n_value if n_value else (1 << 44)
     if not validate_nk(n, k):
         print_nk_table()
@@ -787,7 +793,7 @@ def derive_m(n_value: int | None, k: int) -> int:
 
 
 def run_bsgs_cli(args, device: torch.device) -> int:
-    from keyhunt_tpu.io.targets import load_pubkeys_file
+    from ..io.targets import load_pubkeys_file
     from ..cli import resolve_range, parse_int
 
     # flag incompatibilities, exactly as the reference rejects them

@@ -18,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from keyhunt_tpu.io.results import ResultSink
-from keyhunt_tpu.ref import ecc
 from keyhunt_tpu.search import bsgs as jb
 from keyhunt_tpu_torch import cli
+from keyhunt_tpu_torch.io.results import ResultSink
+from keyhunt_tpu_torch.ref import ecc
 from keyhunt_tpu_torch.ops import field, u256
 from keyhunt_tpu_torch.search import bsgs
 
@@ -30,7 +30,7 @@ M = 256              # tiny baby table: stride 512 keys
 
 @pytest.fixture(scope="module")
 def table():
-    return bsgs.build_baby_table(M, pivots=2, width=32, steps=2)
+    return bsgs.build_baby_table(M, pivots=2, width=32, steps=2, device="cpu")
 
 
 def _engine(tbl, keys, start, end, tmp_path, **kw):
@@ -38,7 +38,7 @@ def _engine(tbl, keys, start, end, tmp_path, **kw):
     cfg = bsgs.BsgsConfig(m=tbl.m, lanes=lanes, steps=steps, **kw)
     sink = ResultSink(path=os.path.join(tmp_path, "found.txt"), quiet=True)
     return bsgs.BsgsEngine(cfg, tbl, [ecc.pubkey(k) for k in keys], start,
-                           end, sink=sink, quiet=True)
+                           end, sink=sink, quiet=True, device="cpu")
 
 
 def test_baby_table_contents(table):
@@ -133,7 +133,7 @@ def test_cli_cpu_finds_planted_keys(tmp_path, monkeypatch):
     assert found == sorted(keys)
 
 
-@pytest.mark.parametrize("argv", [["-m", "xpoint"], ["-m", "bsgs", "--dtable"],
+@pytest.mark.parametrize("argv", [["-m", "minikeys"], ["-m", "bsgs", "--dtable"],
                                   ["-m", "bsgs", "--devices", "2"],
                                   ["-m", "bsgs", "--table-partitions", "2"]])
 def test_cli_not_ported_paths_exit(tmp_path, argv):
@@ -180,7 +180,7 @@ def test_divergence_dropout_drain_finds_every_target(tmp_path):
     """Intended divergence from keyhunt_tpu (ROADMAP §C): when the drain
     after a dropout break finds every remaining target, keyhunt_tpu's
     run() raises TypeError (lanes=None); the port returns the keys."""
-    tbl = bsgs.build_baby_table(512, pivots=2, width=32, steps=2)
+    tbl = bsgs.build_baby_table(512, pivots=2, width=32, steps=2, device="cpu")
     keys = [600, 2400, 3400]
     eng = _engine(tbl, keys, 1, 16384, tmp_path, lanes=2, steps=1)
     assert sorted(eng.run().values()) == sorted(keys)
