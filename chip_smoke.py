@@ -11,11 +11,17 @@ prints no result:
    and whether the native host library (lane seeding, argsort) is built;
 2. kernels: K1 field_mul, K2 field_sqr, K3 batch_inv, K4 giant_scan, K5
    hash160_both and K6 hash160_uncompressed against their plain PyTorch
-   versions on the card at the main paths' shapes (K1-K3 at BSGS's 2^21
-   and the walker's 2^18, K1 also at the pivot advance's 64), compared exactly
-   (integer arithmetic: no tolerance) on the host, and on sampled columns
-   against Python ints or hashlib, with the median time of each (CUDA
-   events) and its bound (the least time the card could take);
+   versions on the card (K1-K3 at BSGS's 2^21, K5 and K6 at the walker's
+   2^18, K4 at BSGS's 131072 lanes x 16 steps), compared exactly (integer
+   arithmetic: no tolerance) on the host, and on sampled columns against
+   Python ints or hashlib, with the median time of each (CUDA events) and
+   its bound (the least time the card could take); then T1's three u32
+   bodies at B = 2^22 after 8 chained passes, exactly against their plain
+   versions, with source ops/s and SASS instructions per element
+   (cuobjdump of the built library) and per second; T1's independent body
+   back to back for ~3 s while nvidia-smi samples the SM clock (the issue
+   rate at the measured clock); and the T1 tool (`python -m
+   keyhunt_tpu_torch.tools.bench_vpu`) once on the card;
 3. BSGS end to end: `keyhunt_tpu_torch.cli -m bsgs --device cuda -k 16`
    at m = 2^26 over a 2^48 range (131072 lanes x 16 steps per dispatch)
    against 4 planted keys, one on a stride centre; KEYFOUNDKEYFOUND.txt
@@ -36,7 +42,27 @@ prints no result:
    vanity, K6 in rmd160 -l both);
 6. walker rate: steady dispatches of `walker.make_step_fn` for ~10 s at
    64 x 4096 x 16 against 2^20 unreachable targets, compressed with -e and
-   xpoint, each with a profiler trace of the same dispatch as in phase 4.
+   xpoint, each with a profiler trace of the same dispatch as in phase 4;
+7. minikeys end to end: `keyhunt_tpu_torch.cli -m minikeys --device cuda`
+   at the default width (2^16 candidates per filter dispatch, 512 solve
+   lanes) from a seeded base, against the uncompressed addresses of the
+   first two valid minikeys past it and 2^10 random addresses, for ~20 s:
+   at least two full solves and a padded drain; KEYFOUNDKEYFOUND.txt must
+   hold exactly the two keys, each once, and K1, K2, K3 and K6 must have
+   launched in the run;
+8. minikeys rate: engine blocks with -R against 2^20 unreachable targets,
+   9 filter dispatches, so 4 full solves and a padded drain; the steady
+   rate is taken over the full solves after the first (the drain is
+   timed apart), with ms per filter dispatch and per solve, and a profiler
+   trace of one filter and one solve (device ms per `minikeys.*` stage,
+   idle share);
+9. path shapes: every kernel of K1-K3, K5 and K6 at every width the CLI
+   runs of phases 3, 5 and 7 launched it at (counted by the wrappers),
+   exactly against its plain version, with its bound, the CUDA-event ms
+   of one call and the device ms per call of 20 calls queued behind ~1 ms
+   fillers that hide the host's issue, at that width; then
+   the kernels ranked by launches x (device ms - bound) summed over those
+   widths (K4 and T1 at their one phase-2 shape).
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}. Needs one GPU; imports no JAX and nothing
@@ -45,6 +71,8 @@ of the JAX package (checked on sys.modules at the end).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import random
@@ -76,6 +104,12 @@ KERNELS = {   # name -> (source, replaced TPU kernel)
                      "keyhunt_tpu/ops/pallas_hash.py:66"),
     "hash160_uncompressed": ("keyhunt_tpu_torch/csrc/hash160.cu",
                              "keyhunt_tpu/ops/pallas_hash.py:80"),
+    "vpu_independent": ("keyhunt_tpu_torch/csrc/bench_vpu.cu",
+                        "tools/bench_vpu.py:43"),
+    "vpu_dependent": ("keyhunt_tpu_torch/csrc/bench_vpu.cu",
+                      "tools/bench_vpu.py:43"),
+    "vpu_rotate_mix": ("keyhunt_tpu_torch/csrc/bench_vpu.cu",
+                       "tools/bench_vpu.py:43"),
 }
 
 # walker geometry: the CLI's defaults, one dispatch = 2^22 keys
@@ -84,14 +118,27 @@ W_SPAN = WA * WW * WS
 W_START, W_END = 1 << 32, (1 << 33) - 1      # -r 100000000:1ffffffff
 W_TARGETS = 1 << 16
 SHORT_START, SHORT_KEYS = 1 << 40, 1 << 26   # the other walker modes
+VPU_B = 1 << 22                               # T1: the JAX tool's default
+# minikeys through the CLI: MK_SECONDS must exceed one solve (8-12 s on
+# H100 hosts, PERF.md) for two full solves to run before the drain
+MK_DECOYS, MK_SECONDS = 1 << 10, 20
+# the minikeys rate: 9 filter dispatches of 2^16 give ~2,300 valid
+# candidates, 4 full solves of 512 and a padded drain
+MK_RATE_FILTERS = 9
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's 3.35 TB/s and its 32-bit
-# integer operations over the card's INT32 rate: 132 SMs x 64 INT32 lanes
-# x 1.98 GHz boost (NVIDIA H100 SXM5 data sheet and Hopper white paper),
-# 1.67e13 operations/s at the full 700 W power limit.
+# integer operations over the rate at which the card can issue them: 132
+# SMs x 4 schedulers x one 32-thread warp instruction per clock x 1.98 GHz
+# boost (NVIDIA H100 SXM5 data sheet and Hopper white paper), 3.35e13
+# thread instructions/s at the full 700 W power limit. The data sheet's 64
+# INT32 lanes per SM (1.67e13/s) are not a ceiling: nvcc sends integer
+# adds and multiplies to the FMA pipe (IMAD.IADD, IMAD.WIDE) beside the
+# ALU's IADD3/LOP3, and T1's independent body issues 98% of 3.35e13 SASS
+# instructions/s on an H100 with its SM clock read at 1,980 MHz under that
+# load (PERF.md; phase 2's `_vpu_clock`).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 # Operations per call under a least-instruction model: a 3-input add or
 # logic op, a rotate (funnel shift) and a byte permute count one each, a
 # 32x32->64 multiply two. Field multiply: 64 wide products, 64 carry adds,
@@ -100,6 +147,20 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # rounds of 13, plus 8; RIPEMD-160 on 32 bytes: 160 line-rounds of 6 plus
 # the byte swaps and the final adds.
 OPS = {"mul": 232, "sqr": 170, "addsub": 24, "sha256": 1320, "ripemd160": 973}
+
+
+def _cost(name: str, n: int) -> tuple[int, int]:
+    """(bytes, operations) of one call of a kernel of K1-K3, K5, K6 over n
+    elements: the arguments of `_bound`."""
+    from keyhunt_tpu_torch.ops import field
+    G = field.BATCH_INV_GROUP
+    return {"field_mul": (96 * n, n * OPS["mul"]),
+            "field_sqr": (64 * n, n * OPS["sqr"]),
+            "batch_inv": (64 * n, n * 3 * OPS["mul"]
+                          + -(-n // G) * (255 * OPS["sqr"] + 15 * OPS["mul"])),
+            "hash160_both": (72 * n, n * 2 * (OPS["sha256"] + OPS["ripemd160"])),
+            "hash160_uncompressed": (84 * n, n * (2 * OPS["sha256"]
+                                                  + OPS["ripemd160"]))}[name]
 
 
 def emit(obj) -> None:
@@ -175,7 +236,8 @@ def phase_device():
         for fn, body in re.findall(r"Compiling entry function '([^']+)'(.*?)"
                                    r"(?=Compiling entry function|\Z)", text, re.S):
             kn = re.search(r"(field_mul|field_sqr|batch_inv|giant_scan|"
-                           r"hash160_both|hash160_uncompressed)_kernel", fn)
+                           r"hash160_both|hash160_uncompressed|vpu_independent|"
+                           r"vpu_dependent|vpu_rotate_mix)_kernel", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                body)
@@ -201,36 +263,11 @@ def _edged_pair(rng, n, device):
     """Two random (8, n) operands with 0, 1, p-1, p and 2^256-1 planted in
     their first columns (in opposite orders)."""
     from keyhunt_tpu_torch.ops import field, u256
-    edges = [0, 1, field.P_INT - 1, field.P_INT, (1 << 256) - 1]
+    edges = [0, 1, field.P_INT - 1, field.P_INT, (1 << 256) - 1][:n]
     a, b = _rand_limbs(rng, n, device), _rand_limbs(rng, n, device)
-    a[:, :5] = u256.to_torch(u256.from_ints(edges), device)
-    b[:, :5] = u256.to_torch(u256.from_ints(edges[::-1]), device)
+    a[:, :len(edges)] = u256.to_torch(u256.from_ints(edges), device)
+    b[:, :len(edges)] = u256.to_torch(u256.from_ints(edges[::-1]), device)
     return a, b
-
-
-def _walker_shape_checks(device) -> dict:
-    """K1, K2 and K3 against their plain versions at the walker's shapes:
-    A*W = 2^18 (the slope denominators, the add, the endomorphism) and K1
-    at (8, A) = (8, 64) (the pivot advance, under one thread block).
-    Returns name -> the largest error and the widths checked."""
-    from keyhunt_tpu_torch.ops import cuda_field, field
-    rng = np.random.default_rng(SEED + 5)
-    norm, G = field.norm, field.BATCH_INV_GROUP
-    out = {n: {"err": 0, "widths": []}
-           for n in ("field_mul", "field_sqr", "batch_inv")}
-    for n in (WA * WW, WA):
-        a, b = _edged_pair(rng, n, device)
-        checks = [("field_mul", cuda_field.mul(a, b), field.mul_plain(a, b), (a, b))]
-        if n > WA:
-            x = norm(_rand_limbs(rng, n, device))
-            checks += [("field_sqr", cuda_field.sqr(a), field.sqr_plain(a), (a,)),
-                       ("batch_inv", cuda_field.batch_inv(x, G),
-                        field.batch_inv_plain(x, G), (x,))]
-        for name, got, want, ops in checks:
-            err = check_equal(f"{name} at width {n}", norm(got), norm(want), ops)
-            out[name]["err"] = max(out[name]["err"], err)
-            out[name]["widths"].append(n)
-    return out
 
 
 def phase_kernels(device):
@@ -243,7 +280,6 @@ def phase_kernels(device):
     rng = np.random.default_rng(SEED)
     stats = {}
     norm = field.norm
-    walker_shapes = _walker_shape_checks(device)
 
     # K1 / K2 at B = 2^21 with the edge values planted in both operands
     B = 1 << 21
@@ -259,14 +295,10 @@ def phase_kernels(device):
         bad = [c for c, g, x, y in zip(cols, gv, av, bv) if g != x * y % P]
         if bad:
             raise AssertionError(f"{name}: kernel != Python ints at {bad}")
-        nb, ops = (96 * B, B * OPS["mul"]) if name == "field_mul" \
-            else (64 * B, B * OPS["sqr"])
-        stats[name] = {"max_abs_err": max(err, walker_shapes[name]["err"]),
-                       "shape": [8, B],
-                       "walker_widths": walker_shapes[name]["widths"],
+        stats[name] = {"max_abs_err": err, "shape": [8, B],
                        "ms": median_ms(lambda: kern(*args), 20),
                        "plain_ms": median_ms(lambda: plain(*args), 5),
-                       **_bound(nb, ops)}
+                       **_bound(*_cost(name, B))}
         emit({"phase": "kernel", "name": name, **stats[name]})
 
     # K3 at B = 2^21 and at an odd B, then a planted zero
@@ -293,14 +325,11 @@ def phase_kernels(device):
     errs.append(check_equal("batch_inv", got,
                             norm(field.batch_inv_plain(z, G)), (z,)))
     stats["batch_inv"] = {
-        "max_abs_err": max(errs + [walker_shapes["batch_inv"]["err"]]),
-        "shape": [8, B], "odd_B": xo.shape[1],
-        "walker_widths": walker_shapes["batch_inv"]["widths"],
+        "max_abs_err": max(errs), "shape": [8, B], "odd_B": xo.shape[1],
         "group": G, "zero_poisons": [g0, g0 + G],
         "ms": median_ms(lambda: cuda_field.batch_inv(x, G), 20),
         "plain_ms": median_ms(lambda: field.batch_inv_plain(x, G), 3),
-        **_bound(64 * B, B * 3 * OPS["mul"]
-                 + -(-B // G) * (255 * OPS["sqr"] + 15 * OPS["mul"]))}
+        **_bound(*_cost("batch_inv", B))}
     emit({"phase": "kernel", "name": "batch_inv", **stats["batch_inv"]})
 
     # K4 at the main path's L = 131072, S = 16, lanes 0/1 planted at +-C
@@ -332,7 +361,33 @@ def phase_kernels(device):
                  S * L * (8 * OPS["mul"] + 3 * OPS["sqr"] + 10 * OPS["addsub"]))}
     emit({"phase": "kernel", "name": "giant_scan", **stats["giant_scan"]})
     stats.update(_hash_kernels(rng, device))
+    stats.update(_vpu_kernels(device))
     return stats
+
+
+def hidden_issue_ms(fn, host_ms: float, spacer, calls: int = 20) -> dict:
+    """Device ms of one fn() call with the host's issue hidden: enough
+    `spacer()` calls (each ~1 ms of device work) are queued first to cover
+    `calls` x `host_ms` (an upper bound of one call's issue time), then
+    fn() `calls` times between two CUDA events, so the device runs them
+    back to back. Also returns the host's issue time of those calls and
+    the device time queued ahead of them, which must exceed it."""
+    import torch
+    spacer_ms = median_ms(spacer, 3)
+    ahead = int(calls * host_ms / spacer_ms) + 2
+    torch.cuda.synchronize()
+    for _ in range(ahead):
+        spacer()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    end.synchronize()
+    return {"device_ms": start.elapsed_time(end) / calls, "issue_ms": issue_ms,
+            "queued_ms": ahead * spacer_ms}
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -383,7 +438,7 @@ def _hash_kernels(rng, device) -> dict:
         "max_abs_err": max(errs), "shape": [8, B], "odd_B": xo.shape[1],
         "ms": median_ms(lambda: cuda_hash.hash160_both(x), 20),
         "plain_ms": median_ms(lambda: h160.hash160_both_plain(x), 3),
-        **_bound(72 * B, B * 2 * (OPS["sha256"] + OPS["ripemd160"]))}
+        **_bound(*_cost("hash160_both", B))}
     emit({"phase": "kernel", "name": "hash160_both", **stats["hash160_both"]})
 
     got = cuda_hash.hash160_uncompressed(x, y)
@@ -397,10 +452,115 @@ def _hash_kernels(rng, device) -> dict:
         "max_abs_err": err, "shape": [8, B],
         "ms": median_ms(lambda: cuda_hash.hash160_uncompressed(x, y), 20),
         "plain_ms": median_ms(lambda: h160.hash160_uncompressed_plain(x, y), 3),
-        **_bound(84 * B, B * (2 * OPS["sha256"] + OPS["ripemd160"]))}
+        **_bound(*_cost("hash160_uncompressed", B))}
     emit({"phase": "kernel", "name": "hash160_uncompressed",
           **stats["hash160_uncompressed"]})
     return stats
+
+
+def _vpu_kernels(device) -> dict:
+    """T1's three bodies at B = 2^22 (the JAX tool's input, from
+    default_rng(0)): each kernel's output after the tool's 8 chained passes
+    exactly against its plain version's, the median ms of the 8 passes,
+    source ops/s (the JAX tool's count), SASS instructions per element
+    (`vpu.sass_per_element`: cuobjdump of the built library) and per
+    second (`bench_vpu.rates`). The bound counts 8 bytes and the SASS
+    instructions per element per pass."""
+    from keyhunt_tpu_torch.ops import u256, vpu
+    from keyhunt_tpu_torch.tools import bench_vpu
+    B, R = VPU_B, bench_vpu.REPS
+    x = u256.to_torch(bench_vpu.make_input(B), device)
+    sass = vpu.sass_per_element()
+    stats = {}
+    for body, (fn, plain, ops) in vpu.BODIES.items():
+        name = "vpu_" + body.replace("-", "_")
+        got, want = vpu.chained(fn, x, R), vpu.chained(plain, x, R)
+        err = check_equal(name, got.reshape(1, -1), want.reshape(1, -1),
+                          (x.reshape(1, -1),))
+        ms = median_ms(lambda: vpu.chained(fn, x, R), 10)
+        n = sum(sass[body].values())
+        stats[name] = {
+            "max_abs_err": err, "shape": [B // 128, 128], "passes": R,
+            "checksum": vpu.checksum(got), "source_ops_per_element": ops,
+            **bench_vpu.rates(ops, B, R, ms, n),
+            "sass_opcodes": dict(sass[body].most_common(6)),
+            "ms": ms, "plain_ms": median_ms(lambda: vpu.chained(plain, x, R), 3),
+            **_bound(8 * B * R, n * B * R)}
+        emit({"phase": "kernel", "name": name, **stats[name]})
+    emit(_vpu_clock(device, sum(sass["independent"].values())))
+    return stats
+
+
+def _vpu_clock(device, sass: int, calls: int = 2500, n: int = 1 << 26) -> dict:
+    """T1's independent body over n elements, `calls` launches back to
+    back (~3 s at 2^26), while a thread samples the SM clock and power draw with
+    nvidia-smi: the SASS instructions/s of that window (CUDA events), the
+    clock under that load, and the issue rate at that clock (SMs x 4
+    schedulers x 32 lanes x clock), against the 1.98 GHz `_bound` assumes."""
+    import threading
+    import torch
+    from keyhunt_tpu_torch.ops import vpu
+    x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
+                      device=device)
+    vpu.independent(x)
+    torch.cuda.synchronize()
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            line = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.splitlines()[0]
+            samples.append([float(v) for v in line.split(",")])
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    thread = threading.Thread(target=sample)
+    thread.start()
+    try:
+        for _ in range(calls):
+            vpu.independent(x)
+        end.record()
+        end.synchronize()
+    finally:
+        stop.set()
+        thread.join()
+    if not samples:
+        raise AssertionError("vpu clock: nvidia-smi gave no sample")
+    ms = start.elapsed_time(end)
+    rate = sass * n * calls / ms * 1e3
+    clock = statistics.median(c for c, _ in samples)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    at_clock = sms * 4 * 32 * clock * 1e6
+    return {"phase": "vpu_clock", "body": "independent", "elements": n,
+            "calls": calls, "ms": ms, "sass_per_s": rate, "samples": len(samples),
+            "sm_clock_mhz": clock,
+            "sm_clock_mhz_range": [min(c for c, _ in samples),
+                                   max(c for c, _ in samples)],
+            "power_draw_w": statistics.median(w for _, w in samples),
+            "sms": sms, "issue_rate_at_clock": at_clock,
+            "share_of_issue_rate_at_clock": rate / at_clock,
+            "share_of_bound_rate": rate / INT32_OPS_PER_S}
+
+
+def phase_vpu_tool() -> dict:
+    """The T1 tool's entry point on the card at B = 2^22, with the launch
+    counts set to 0 just before it and read just after; returns the run."""
+    from keyhunt_tpu_torch import _build
+    from keyhunt_tpu_torch.tools import bench_vpu
+    _build.reset_launches()
+    t0 = time.time()
+    rc = bench_vpu.main([str(VPU_B), "--device", "cuda"])
+    run = {"rc": rc, "seconds": time.time() - t0, "launches": dict(_build.LAUNCHES),
+           "launch_widths": sorted([k, n, c] for (k, n), c
+                                   in _build.LAUNCH_WIDTHS.items())}
+    emit({"phase": "vpu_tool", **run})
+    missing = [k for k in KERNELS if k.startswith("vpu_")
+               and not run["launches"].get(k)]
+    if rc != 0 or missing:
+        raise AssertionError(f"vpu tool: rc {rc}, kernels never launched: {missing}")
+    return run
 
 
 def _planted_keys():
@@ -423,19 +583,38 @@ WALKER_RUN_KERNELS = {
 }
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
 def _cli_run(rundir: str, argv: list[str],
              found_file: str = "KEYFOUNDKEYFOUND.txt") -> dict:
     """`keyhunt_tpu_torch.cli.main(argv)` in `rundir`, with every launch
-    count set to 0 just before the run and read just after it."""
+    count set to 0 just before the run and read just after it (by kernel,
+    and as [kernel, width, launches] rows); the run's last stdout line is
+    returned too."""
     from keyhunt_tpu_torch import _build, cli
     cwd = os.getcwd()
     os.chdir(rundir)
+    tee = _Tee(sys.stdout)
     try:
         _build.reset_launches()
         t0 = time.time()
-        rc = cli.main(argv)
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(argv)
         seconds = time.time() - t0
         launches = dict(_build.LAUNCHES)
+        widths = sorted([k, n, c] for (k, n), c in _build.LAUNCH_WIDTHS.items())
     finally:
         os.chdir(cwd)
     path = os.path.join(rundir, found_file)
@@ -444,8 +623,10 @@ def _cli_run(rundir: str, argv: list[str],
         with open(path) as fh:
             found = sorted(int(ln.split(":")[1], 16) for ln in fh
                            if ln.startswith("Private key (hex):"))
+    last = tee.kept.getvalue().strip().splitlines()
     return {"argv": argv, "rc": rc, "seconds": seconds, "launches": launches,
-            "found": found}
+            "launch_widths": widths, "found": found,
+            "last_line": last[-1] if last else ""}
 
 
 def phase_e2e():
@@ -466,7 +647,7 @@ def phase_e2e():
     missing = [k for k in BSGS_KERNELS if run["launches"].get(k, 0) < 1]
     if missing:
         raise AssertionError(f"e2e: kernels never launched: {missing}")
-    return run["launches"]
+    return [run]
 
 
 def _address(k: int, compressed: bool = True) -> str:
@@ -491,7 +672,7 @@ def phase_walker_e2e() -> dict:
     """The walker through the CLI: the main run (address, compressed, -e,
     2^32 keys, 2^16 targets) and one short run of each other mode, each
     held to its planted keys and to the kernels of its own path
-    (`WALKER_RUN_KERNELS`). Returns the launches summed over the runs."""
+    (`WALKER_RUN_KERNELS`). Returns the runs."""
     from keyhunt_tpu_torch.io import base58
     from keyhunt_tpu_torch.ref import ecc
     from keyhunt_tpu_torch.ref.hashes import eth_address, hash160
@@ -537,7 +718,6 @@ def phase_walker_e2e() -> dict:
                     found_file="VANITYKEYFOUND.txt")
     runs.append(("vanity", vrun, [k[6]]))
 
-    total: dict = {}
     for name, run, want in runs:
         emit({"phase": "walker_e2e", "path": name, **run, "planted": want})
         if run["rc"] != 0:
@@ -555,9 +735,7 @@ def phase_walker_e2e() -> dict:
         if missing:
             raise AssertionError(f"walker {name}: kernels never launched "
                                  f"in its run: {missing}")
-        for kern, n in run["launches"].items():
-            total[kern] = total.get(kern, 0) + n
-    return total
+    return [run for _, run, _ in runs]
 
 
 def phase_rate(device, smi):
@@ -713,6 +891,201 @@ def phase_walker_rate(device, smi) -> dict:
     return out
 
 
+def phase_minikeys_e2e() -> dict:
+    """Minikeys through the CLI at the default width, for MK_SECONDS:
+    exactly the two planted keys, each once, at least two full solves and
+    a padded drain (the CLI's last line counts them), and K1, K2, K3 and K6
+    launched in the run. Returns the run."""
+    from keyhunt_tpu_torch.io import base58
+    from keyhunt_tpu_torch.ref import ecc
+    from keyhunt_tpu_torch.ref.hashes import sha256
+    from keyhunt_tpu_torch.search import minikeys as mk
+    v = base = random.Random(SEED + 11).randrange(mk.BASE ** mk.NDIGITS // 2)
+    planted = []
+    while len(planted) < 2:
+        m = mk.minikey_from_int(v)
+        if sha256(m.encode() + b"?")[0] == 0:
+            planted.append(m)
+        v += 1
+    keys = sorted(int.from_bytes(sha256(m.encode()), "big") % ecc.N
+                  for m in planted)
+    decoys = np.random.default_rng(SEED + 11).integers(
+        0, 256, size=(MK_DECOYS, 20), dtype=np.uint8)
+    rundir = _walker_dir("minikeys", [_address(k, compressed=False) for k in keys]
+                         + [base58.p2pkh_address(r.tobytes()) for r in decoys])
+    run = _cli_run(rundir, ["-m", "minikeys", "-f", "targets.txt", "-C",
+                            mk.minikey_from_int(base), "--device", "cuda",
+                            "--max-seconds", str(MK_SECONDS), "-s", "60"])
+    done = re.search(r"(\d+) solve\(s\), (\d+) padded", run["last_line"])
+    solves, padded = (int(g) for g in done.groups()) if done else (0, 0)
+    emit({"phase": "minikeys_e2e", **run, "planted": keys,
+          "planted_minikeys": planted, "solves": solves, "padded_lanes": padded})
+    if run["rc"] != 0 or run["found"] != keys:
+        raise AssertionError(f"minikeys: found {run['found']}, planted {keys}")
+    if solves < 3 or padded < 1:
+        raise AssertionError(f"minikeys: {solves} solves, {padded} padded lanes: "
+                             f"want two full solves and a padded drain")
+    missing = [k for k in ("field_mul", "field_sqr", "batch_inv",
+                           "hash160_uncompressed") if run["launches"].get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"minikeys: kernels never launched: {missing}")
+    return [run]
+
+
+def phase_minikeys_rate(device, smi, cfg=None) -> dict:
+    """The minikeys rate at the default width, against 2^20 unreachable
+    hash160 targets, with -R (after the warm-up of phase 7):
+    `MK_RATE_FILTERS` filter dispatches, so 4 full solves and a padded
+    drain. The steady rate covers the full solves after the first: the
+    candidates that solve_lanes x those solves stand for (candidates
+    filtered per valid one) over the time from the end of the first full
+    solve to the end of the last; the drain is timed apart. Host-clock ms
+    of each filter dispatch and each solve (each ends in its host fetch),
+    then a profiler trace of one filter and one solve."""
+    from keyhunt_tpu_torch.io.targets import TargetSet
+    from keyhunt_tpu_torch.ops import match
+    from keyhunt_tpu_torch.search import minikeys as mk
+    words = np.random.default_rng(SEED + 12).integers(
+        0, 1 << 32, size=(1 << 20, 2), dtype=np.uint64)
+    t0, t1 = match.build_table([tuple(w) for w in words.tolist()])
+    ts = TargetSet(mode="hash160", exact=set(), t0=t0, t1=t1)
+    cfg = cfg or mk.MinikeysConfig()
+    eng = mk.MinikeysEngine(cfg, ts, rng_seed=SEED, quiet=True,
+                            random_mode=True, device=device)
+    filters, solves = [], []      # (ms, valid rows); (end, ms) per call
+    run_filter, run_solve = eng.filter, eng.solve_block
+    last = {}
+
+    def timed_filter(msgs):
+        last["filter"] = msgs
+        t = time.perf_counter()
+        valid = run_filter(msgs)
+        filters.append(((time.perf_counter() - t) * 1e3, len(valid)))
+        return valid
+
+    def timed_solve(block):
+        last["solve"] = block
+        t = time.perf_counter()
+        run_solve(block)
+        end = time.perf_counter()
+        solves.append((end, (end - t) * 1e3))
+
+    eng.filter, eng.solve_block = timed_filter, timed_solve
+    eng.run(max_candidates=MK_RATE_FILTERS * cfg.filter_batch)
+    full = solves[:-1] if eng.padded else solves
+    if len(full) < 3:
+        raise AssertionError(f"minikeys rate: {len(full)} full solves, want 3+")
+    window = full[-1][0] - full[0][0]
+    per_valid = eng.meter.total_keys / sum(v for _, v in filters)
+    out = {"phase": "minikeys_rate", "card": smi, "targets": 1 << 20,
+           "filter_batch": cfg.filter_batch, "solve_lanes": cfg.solve_lanes,
+           "filters": len(filters), "candidates": eng.meter.total_keys,
+           "candidates_per_valid": per_valid, "full_solves": len(full),
+           "window_solves": len(full) - 1, "window_seconds": window,
+           "candidates_per_s": cfg.solve_lanes * (len(full) - 1) * per_valid / window,
+           "solves_per_s": (len(full) - 1) / window,
+           "ms_per_filter": statistics.mean(ms for ms, _ in filters),
+           "ms_per_solve": statistics.mean(ms for _, ms in full),
+           "drain_ms": solves[-1][1] if eng.padded else None,
+           "padded_lanes": eng.padded}
+    msgs, block = last["filter"], last["solve"]
+    t = time.perf_counter()
+    out["trace"] = profile_dispatches(
+        lambda: (run_filter(msgs), run_solve(block)), 1, "minikeys")
+    out["trace_seconds"] = time.perf_counter() - t
+    emit(out)
+    return out
+
+
+def _path_shape_kernels(rng, device) -> dict:
+    """name -> (kernel, plain version, operands(n)) of K1-K3, K5 and K6:
+    random operands of width n with 0, 1, p-1, p and 2^256-1 planted in the
+    first columns (K3: random canonical values)."""
+    from keyhunt_tpu_torch.ops import cuda_field, cuda_hash, field
+    from keyhunt_tpu_torch.ops import hash160 as h160
+    G = field.BATCH_INV_GROUP
+    return {
+        "field_mul": (cuda_field.mul, field.mul_plain,
+                      lambda n: _edged_pair(rng, n, device)),
+        "field_sqr": (cuda_field.sqr, field.sqr_plain,
+                      lambda n: _edged_pair(rng, n, device)[:1]),
+        "batch_inv": (lambda x: cuda_field.batch_inv(x, G),
+                      lambda x: field.batch_inv_plain(x, G),
+                      lambda n: (field.norm(_rand_limbs(rng, n, device)),)),
+        "hash160_both": (cuda_hash.hash160_both, h160.hash160_both_plain,
+                         lambda n: _edged_pair(rng, n, device)[:1]),
+        "hash160_uncompressed": (cuda_hash.hash160_uncompressed,
+                                 h160.hash160_uncompressed_plain,
+                                 lambda n: _edged_pair(rng, n, device)),
+    }
+
+
+def phase_path_shapes(device, runs: dict, stats: dict) -> dict:
+    """Each kernel of K1-K3, K5 and K6 at every width that the CLI runs
+    (`runs`: path -> its runs) launched it at, exactly against its plain
+    version (field outputs normalised), with its bound at that width and
+    two times per call: the median CUDA-event ms of one call, which at
+    small widths is the wrapper's host issue time, and the device ms of
+    the kernel with that issue hidden (`hidden_issue_ms`). Each kernel's largest
+    error is folded into `stats`. Then the ranking: per kernel, launches x
+    (device ms - bound) summed over widths; K4 and T1, each launched at the
+    one shape phase 2 times, from phase 2's ms. Returns the launches by
+    kernel over all runs."""
+    import torch
+    from keyhunt_tpu_torch.ops import field, vpu
+    kernels = _path_shape_kernels(np.random.default_rng(SEED + 13), device)
+    filler = torch.zeros(1 << 26, dtype=torch.int32, device=device)
+    launched, paths, total = {}, {}, {}
+    for path, path_runs in runs.items():
+        for run in path_runs:
+            for kern, n, c in run["launch_widths"]:
+                launched[kern, n] = launched.get((kern, n), 0) + c
+                paths.setdefault((kern, n), set()).add(path)
+                total[kern] = total.get(kern, 0) + c
+    rows, excess, device_ms, event_ms = [], {}, {}, {}
+    for (kern, n), c in sorted(launched.items()):
+        if kern not in kernels:
+            continue
+        kernel, plain, operands = kernels[kern]
+        ops = operands(n)
+        got, want = kernel(*ops), plain(*ops)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max(check_equal(f"{kern} at width {n}",
+                              *((field.norm(g), field.norm(w))
+                                if kern.startswith(("field", "batch")) else (g, w)),
+                              ops) for g, w in pairs)
+        stats[kern]["max_abs_err"] = max(stats[kern]["max_abs_err"], err)
+        ms = median_ms(lambda: kernel(*ops), 20)
+        timed = hidden_issue_ms(lambda: kernel(*ops), ms,
+                                lambda: vpu.independent(filler))
+        if timed["issue_ms"] >= timed["queued_ms"]:
+            raise AssertionError(f"{kern} at width {n}: the host's issue "
+                                 f"outlasted the queued work: {timed}")
+        dev = timed["device_ms"]
+        bound = _bound(*_cost(kern, n))["bound_ms"]
+        rows.append({"kernel": kern, "width": n, "paths": sorted(paths[kern, n]),
+                     "launches": c, "max_abs_err": err, "ms": ms, **timed,
+                     "bound_ms": bound})
+        excess[kern] = excess.get(kern, 0.0) + c * (dev - bound)
+        device_ms[kern] = device_ms.get(kern, 0.0) + c * dev
+        event_ms[kern] = event_ms.get(kern, 0.0) + c * ms
+    for kern in KERNELS:
+        if kern not in kernels and total.get(kern):
+            excess[kern] = total[kern] * (stats[kern]["ms"] - stats[kern]["bound_ms"])
+            device_ms[kern] = event_ms[kern] = total[kern] * stats[kern]["ms"]
+    widths: dict = {}             # kernel -> path -> widths launched
+    for (kern, n), ps in sorted(paths.items()):
+        for p in ps:
+            widths.setdefault(kern, {}).setdefault(p, []).append(n)
+    emit({"phase": "path_shapes", "rows": rows, "widths": widths})
+    emit({"phase": "ranking",
+          "by": "launches x (device ms - bound), summed over widths",
+          "kernels": [{"name": k, "launches": total[k], "device_ms": device_ms[k],
+                       "event_ms": event_ms[k], "excess_ms": excess[k]}
+                      for k in sorted(excess, key=lambda k: -excess[k])]})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -722,11 +1095,13 @@ def main() -> int:
     device = torch.device("cuda", 0)
     name, smi = phase_device()
     stats = phase_kernels(device)
-    launches = phase_e2e()
+    runs = {"vpu_tool": [phase_vpu_tool()], "bsgs": phase_e2e()}
     phase_rate(device, smi)
-    for kern, n in phase_walker_e2e().items():
-        launches[kern] = launches.get(kern, 0) + n
+    runs["walker"] = phase_walker_e2e()
     phase_walker_rate(device, smi)
+    runs["minikeys"] = phase_minikeys_e2e()
+    phase_minikeys_rate(device, smi)
+    launches = phase_path_shapes(device, runs, stats)
     leaked = sorted(n for n in sys.modules
                     if n == "jax" or n.startswith("jax.")
                     or n.split(".")[0] == "keyhunt_tpu")

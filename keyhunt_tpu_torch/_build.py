@@ -17,6 +17,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +26,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)),
                           "build", "keyhunt_tpu_torch")
-SOURCES = ("field_kernels.cu", "jacwalk.cu", "hash160.cu")
+SOURCES = ("field_kernels.cu", "jacwalk.cu", "hash160.cu", "bench_vpu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,10 +41,15 @@ _SIGNATURES = {
     "kh_giant_scan": [_VP] * 9 + [_I64, _INT, _VP, _VP],
     "kh_hash160_both": [_VP, _VP, _VP, _I64, _VP],
     "kh_hash160_uncompressed": [_VP, _VP, _VP, _I64, _VP],
+    "kh_vpu_independent": [_VP, _VP, _I64, _VP],
+    "kh_vpu_dependent": [_VP, _VP, _I64, _VP],
+    "kh_vpu_rotate_mix": [_VP, _VP, _I64, _VP],
 }
 
-#: kernel launches by kernel name; each wrapper adds one where it launches
+#: kernel launches by kernel name, and by (kernel name, elements per
+#: launch); each wrapper adds one to both where it launches (`count_launch`)
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCH_WIDTHS: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -53,6 +59,13 @@ BUILD_INFO: dict = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCH_WIDTHS.clear()
+
+
+def count_launch(name: str, n: int) -> None:
+    """Count one launch of kernel `name` over n elements (lanes)."""
+    LAUNCHES[name] += 1
+    LAUNCH_WIDTHS[name, n] += 1
 
 
 def _source_hash() -> str:
@@ -63,14 +76,15 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
 
 
 def build() -> dict[str, ctypes.CDLL]:
@@ -89,7 +103,7 @@ def build() -> dict[str, ctypes.CDLL]:
             if os.path.exists(so):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+            cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
                    os.path.join(CSRC, src)]
             procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
@@ -127,3 +141,32 @@ def entry(stem: str, fn: str):
 def check(rc: int, fn: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
+
+
+_SASS = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]+?)\s*;")
+
+
+def count_sass(text: str) -> dict[str, collections.Counter]:
+    """Opcode counts of the SASS instructions per thread of each kernel in a
+    ``cuobjdump -sass`` listing, by (mangled) function name: the kernel's
+    instructions up to and including its last unpredicated EXIT, NOPs left
+    out (what follows that EXIT is the closing self-branch and padding).
+    For straight-line code -- loops unrolled, no branch but a predicated
+    exit -- each thread issues each of these once."""
+    counts = {}
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                 text, re.S):
+        ins = [i.split() for i in _SASS.findall(body) if i != "NOP"]
+        last_exit = max(n for n, i in enumerate(ins) if i == ["EXIT"])
+        counts[name] = collections.Counter(i[1] if i[0].startswith("@") else i[0]
+                                           for i in ins[:last_exit + 1])
+    return counts
+
+
+def sass_instructions(stem: str) -> dict[str, collections.Counter]:
+    """`count_sass` of the built library `stem`."""
+    build()
+    so = os.path.join(BUILD_INFO["dir"], f"lib{stem}.so")
+    return count_sass(subprocess.run([_cuda_tool("cuobjdump"), "-sass", so],
+                                     capture_output=True, text=True,
+                                     check=True).stdout)

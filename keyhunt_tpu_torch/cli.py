@@ -2,14 +2,16 @@
 
 The same parser as keyhunt_tpu/cli.py (the reference's `menu()` surface,
 keyhunt.cpp:6624-6675) plus ``--device {cuda,cpu}`` (cuda by default).
-``-m bsgs`` and the walker modes address (``-c eth`` too), rmd160, xpoint,
-eth and vanity run on PyTorch; ``-m minikeys`` exits with "[E] mode ...
-not yet ported".
+Every search mode runs on PyTorch: ``-m bsgs``, the walker modes address
+(``-c eth`` too), rmd160, xpoint, eth and vanity, and ``-m minikeys``
+(``-f`` addresses, ``-C`` base minikey, ``-8`` alphabet, ``-R``).
 
     python -m keyhunt_tpu_torch.cli -m bsgs -f pubkeys.txt -r 1:80000 \\
         -n 0x100000 -k 1 --device cpu
     python -m keyhunt_tpu_torch.cli -m address -f addresses.txt -e \\
         -r 100000000:1ffffffff
+    python -m keyhunt_tpu_torch.cli -m minikeys -f addresses.txt \\
+        -C SG64GZqySYwBm9KxE3wJ29 --max-seconds 60
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "(keyhunt-compatible surface)")
     p.add_argument("-m", "--mode", required=True,
                    choices=["address", "rmd160", "xpoint", "eth", "bsgs", "minikeys", "vanity"],
-                   help="search mode (keyhunt -m); minikeys is not ported")
+                   help="search mode (keyhunt -m); all seven run on PyTorch")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: the hand-written kernels (fails without a "
                         "GPU); cpu: their plain PyTorch versions")
@@ -202,14 +204,14 @@ def translate_mapped_flags(args) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode == "minikeys":
-        raise SystemExit(f"[E] mode {args.mode} not yet ported to "
-                         f"keyhunt_tpu_torch (use keyhunt_tpu)")
     if args.coordinator or (args.num_processes or 1) > 1:
         raise SystemExit("[E] multi-host search is not yet ported to "
                          "keyhunt_tpu_torch (use keyhunt_tpu)")
     from .device import resolve_device
     device = resolve_device(args.device)
+    if args.mode == "minikeys":
+        from .search.minikeys import run_minikeys_cli
+        return run_minikeys_cli(args, device)
     translate_mapped_flags(args)
     if args.mode != "bsgs":
         if args.create_mapped is not None:

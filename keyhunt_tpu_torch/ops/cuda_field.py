@@ -3,8 +3,8 @@
 Counterpart of keyhunt_tpu/ops/pallas_field.py, named for what it now is.
 Each wrapper takes contiguous (8, n) int32 limb tensors on a CUDA device,
 allocates its output with `torch.empty`, launches on the current stream,
-raises if the launch fails, and counts the launch in
-`_build.LAUNCHES[<kernel name>]`. They never run on the CPU: the routers
+raises if the launch fails, and counts the launch with
+`_build.count_launch`. They never run on the CPU: the routers
 in `ops.field` send CPU tensors to the plain versions.
 """
 
@@ -47,7 +47,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = _build.entry(_LIB, "kh_field_mul")
     _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _stream()),
                  "kh_field_mul")
-    _build.LAUNCHES["field_mul"] += 1
+    _build.count_launch("field_mul", n)
     return out
 
 
@@ -57,7 +57,7 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     fn = _build.entry(_LIB, "kh_field_sqr")
     _build.check(fn(a.data_ptr(), out.data_ptr(), n, _stream()), "kh_field_sqr")
-    _build.LAUNCHES["field_sqr"] += 1
+    _build.count_launch("field_sqr", n)
     return out
 
 
@@ -71,5 +71,5 @@ def batch_inv(x: torch.Tensor, group: int) -> torch.Tensor:
     fn = _build.entry(_LIB, "kh_batch_inv")
     _build.check(fn(x.data_ptr(), out.data_ptr(), n, group, _stream()),
                  "kh_batch_inv")
-    _build.LAUNCHES["batch_inv"] += 1
+    _build.count_launch("batch_inv", n)
     return out

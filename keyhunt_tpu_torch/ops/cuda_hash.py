@@ -4,7 +4,7 @@ Counterpart of keyhunt_tpu/ops/pallas_hash.py. Each wrapper takes
 contiguous (8, n) int32 limb tensors of canonical X (and Y) on a CUDA
 device, allocates the (5, n) int32 hash words with `torch.empty`, launches
 on the current stream, raises if the launch fails, and counts the launch
-in `_build.LAUNCHES`. Any n >= 1 is accepted: the kernels guard their
+with `_build.count_launch`. Any n >= 1 is accepted: the kernels guard their
 tail. They never run on the CPU: `ops.hash160` sends CPU tensors to the
 plain versions.
 """
@@ -27,7 +27,7 @@ def hash160_both(x: torch.Tensor):
     fn = _build.entry(_LIB, "kh_hash160_both")
     _build.check(fn(x.data_ptr(), h02.data_ptr(), h03.data_ptr(), n, _stream()),
                  "kh_hash160_both")
-    _build.LAUNCHES["hash160_both"] += 1
+    _build.count_launch("hash160_both", n)
     return h02, h03
 
 
@@ -38,5 +38,5 @@ def hash160_uncompressed(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     fn = _build.entry(_LIB, "kh_hash160_uncompressed")
     _build.check(fn(x.data_ptr(), y.data_ptr(), h.data_ptr(), n, _stream()),
                  "kh_hash160_uncompressed")
-    _build.LAUNCHES["hash160_uncompressed"] += 1
+    _build.count_launch("hash160_uncompressed", n)
     return h

@@ -1,2 +1,2 @@
-"""Search engines built on the ops layer: BSGS (`bsgs`) and the brute-force
-walker (`walker`, `engine`, `vanity`)."""
+"""Search engines built on the ops layer: BSGS (`bsgs`), the brute-force
+walker (`walker`, `engine`, `vanity`) and minikeys (`minikeys`)."""

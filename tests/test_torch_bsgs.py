@@ -133,7 +133,8 @@ def test_cli_cpu_finds_planted_keys(tmp_path, monkeypatch):
     assert found == sorted(keys)
 
 
-@pytest.mark.parametrize("argv", [["-m", "minikeys"], ["-m", "bsgs", "--dtable"],
+@pytest.mark.parametrize("argv", [["-m", "minikeys", "--devices", "2"],
+                                  ["-m", "bsgs", "--dtable"],
                                   ["-m", "bsgs", "--devices", "2"],
                                   ["-m", "bsgs", "--table-partitions", "2"]])
 def test_cli_not_ported_paths_exit(tmp_path, argv):

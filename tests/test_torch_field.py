@@ -149,3 +149,21 @@ def test_resolve_device():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device("cuda")
+
+
+def test_count_launch_counts_by_kernel_and_width():
+    """`_build.count_launch` adds one launch by kernel name and one by
+    (name, width); `reset_launches` clears both counts."""
+    saved = dict(_build.LAUNCHES), dict(_build.LAUNCH_WIDTHS)
+    try:
+        _build.reset_launches()
+        for n in (512, 512, 64):
+            _build.count_launch("field_mul", n)
+        assert dict(_build.LAUNCHES) == {"field_mul": 3}
+        assert dict(_build.LAUNCH_WIDTHS) == {("field_mul", 512): 2,
+                                              ("field_mul", 64): 1}
+        _build.reset_launches()
+        assert not _build.LAUNCHES and not _build.LAUNCH_WIDTHS
+    finally:
+        _build.LAUNCHES.update(saved[0])
+        _build.LAUNCH_WIDTHS.update(saved[1])

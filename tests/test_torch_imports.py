@@ -1,6 +1,7 @@
 """The port stands alone: no module of keyhunt_tpu_torch, and not
 chip_smoke.py, imports jax or anything of the JAX package keyhunt_tpu
-(module names that start with keyhunt_tpu_torch are the port's own)."""
+(module names that start with keyhunt_tpu_torch are the port's own). The
+floors are the counts of modules and files, `tools/` included."""
 
 import os
 import pathlib
@@ -34,7 +35,7 @@ def test_importing_every_module_loads_no_jax_and_no_keyhunt_tpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, bad = proc.stdout.split(maxsplit=1)
-    assert int(count) >= 25 and bad.strip() == "[]"
+    assert int(count) >= 35 and bad.strip() == "[]"
 
 
 def test_no_source_line_imports_keyhunt_tpu():
@@ -42,4 +43,4 @@ def test_no_source_line_imports_keyhunt_tpu():
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT.finditer(f.read_text())]
     assert offenders == []
-    assert len(files) >= 25
+    assert len(files) >= 37

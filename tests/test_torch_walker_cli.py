@@ -108,7 +108,7 @@ def test_vanity(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["-m", "minikeys"], "not yet ported"),
+    (["-m", "minikeys", "--devices", "2"], "not yet ported"),
     (["-m", "address", "--devices", "2", "-f", "x"], "not yet ported"),
     (["-m", "rmd160", "-e", "-l", "both", "-f", "t.txt"], "endomorphism"),
 ])
