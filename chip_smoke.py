@@ -15,7 +15,11 @@ prints no result:
    2^18, K4 at BSGS's 131072 lanes x 16 steps), compared exactly (integer
    arithmetic: no tolerance) on the host, and on sampled columns against
    Python ints or hashlib, with the median time of each (CUDA events) and
-   its bound (the least time the card could take); then T1's three u32
+   its bound (the least time the card could take); K3 also at 2^20 + 1,
+   1, T*G and T*G + 1, at n = 1 over edge values, with zeros planted (only
+   their columns may come out 0), and its root inversion timed alone (the
+   device ms of a call at n = 1), and the one-thread SM-cycle latencies
+   of the field pieces K3 chains (`tools.field_latency`); then T1's three u32
    bodies at B = 2^22 after 8 chained passes, exactly against their plain
    versions, with source ops/s and SASS instructions per element
    (cuobjdump of the built library) and per second; T1's independent body
@@ -143,21 +147,24 @@ INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 # logic op, a rotate (funnel shift) and a byte permute count one each, a
 # 32x32->64 multiply two. Field multiply: 64 wide products, 64 carry adds,
 # ~40 for the fold; square: 36 products and the doubling; add/sub with
-# their folds ~24. SHA-256 compression: 48 schedule words of 10 and 64
-# rounds of 13, plus 8; RIPEMD-160 on 32 bytes: 160 line-rounds of 6 plus
-# the byte swaps and the final adds.
-OPS = {"mul": 232, "sqr": 170, "addsub": 24, "sha256": 1320, "ripemd160": 973}
+# their folds ~24; one inversion by safegcd: ~18 batches of 30 divsteps
+# (~150) and the two 2x2 matrix updates of 9 limbs (~290). SHA-256
+# compression: 48 schedule words of 10 and 64 rounds of 13, plus 8;
+# RIPEMD-160 on 32 bytes: 160 line-rounds of 6 plus the byte swaps and the
+# final adds. Each kernel is charged its function's work, not its
+# implementation's: a batched inversion of n elements is Montgomery's 3
+# products per element and one inversion per call, whatever the kernel
+# spends on its tree or its grouping.
+OPS = {"mul": 232, "sqr": 170, "addsub": 24, "inv": 8000, "sha256": 1320,
+       "ripemd160": 973}
 
 
 def _cost(name: str, n: int) -> tuple[int, int]:
     """(bytes, operations) of one call of a kernel of K1-K3, K5, K6 over n
     elements: the arguments of `_bound`."""
-    from keyhunt_tpu_torch.ops import field
-    G = field.BATCH_INV_GROUP
     return {"field_mul": (96 * n, n * OPS["mul"]),
             "field_sqr": (64 * n, n * OPS["sqr"]),
-            "batch_inv": (64 * n, n * 3 * OPS["mul"]
-                          + -(-n // G) * (255 * OPS["sqr"] + 15 * OPS["mul"])),
+            "batch_inv": (64 * n, n * 3 * OPS["mul"] + OPS["inv"]),
             "hash160_both": (72 * n, n * 2 * (OPS["sha256"] + OPS["ripemd160"])),
             "hash160_uncompressed": (84 * n, n * (2 * OPS["sha256"]
                                                   + OPS["ripemd160"]))}[name]
@@ -235,9 +242,10 @@ def phase_device():
     for text in info["ptxas"].values():
         for fn, body in re.findall(r"Compiling entry function '([^']+)'(.*?)"
                                    r"(?=Compiling entry function|\Z)", text, re.S):
-            kn = re.search(r"(field_mul|field_sqr|batch_inv|giant_scan|"
-                           r"hash160_both|hash160_uncompressed|vpu_independent|"
-                           r"vpu_dependent|vpu_rotate_mix)_kernel", fn)
+            kn = re.search(r"(field_mul|field_sqr|binv_up|binv_block|binv_down|"
+                           r"giant_scan|hash160_both|hash160_uncompressed|"
+                           r"vpu_independent|vpu_dependent|vpu_rotate_mix|"
+                           r"field_latency)_kernel", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                body)
@@ -276,6 +284,7 @@ def phase_kernels(device):
     from keyhunt_tpu_torch.ops import cuda_field, field, jacwalk, u256
     from keyhunt_tpu_torch.ref import ecc
     from keyhunt_tpu_torch.search import bsgs
+    from keyhunt_tpu_torch.tools import field_latency
     P = field.P_INT
     rng = np.random.default_rng(SEED)
     stats = {}
@@ -301,37 +310,12 @@ def phase_kernels(device):
                        **_bound(*_cost(name, B))}
         emit({"phase": "kernel", "name": name, **stats[name]})
 
-    # K3 at B = 2^21 and at an odd B, then a planted zero
-    G = field.BATCH_INV_GROUP
-    x = field.norm(_rand_limbs(rng, B, device))
-    xo = x[:, :(1 << 20) + 1].contiguous()
-    errs = []
-    for xx in (x, xo):
-        got = norm(cuda_field.batch_inv(xx, G))
-        errs.append(check_equal("batch_inv", got,
-                                norm(field.batch_inv_plain(xx, G)), (xx,)))
-        cols = sample_cols(np.random.default_rng(SEED + 2), xx.shape[1], 32)
-        gv, xv = u256.to_ints(got[:, cols]), u256.to_ints(xx[:, cols])
-        bad = [c for c, g, v in zip(cols, gv, xv) if g != pow(v, P - 2, P)]
-        if bad:
-            raise AssertionError(f"batch_inv: kernel != pow(x, p-2, p) at {bad}")
-    z = x[:, :4096].clone()
-    z[:, 1000] = 0
-    got = norm(cuda_field.batch_inv(z, G))
-    g0 = 1000 // G * G
-    zero_cols = np.nonzero((u256.to_numpy(got) == 0).all(axis=0))[0].tolist()
-    if zero_cols != list(range(g0, g0 + G)):
-        raise AssertionError(f"batch_inv: a zero poisoned {zero_cols}")
-    errs.append(check_equal("batch_inv", got,
-                            norm(field.batch_inv_plain(z, G)), (z,)))
-    stats["batch_inv"] = {
-        "max_abs_err": max(errs), "shape": [8, B], "odd_B": xo.shape[1],
-        "group": G, "zero_poisons": [g0, g0 + G],
-        "ms": median_ms(lambda: cuda_field.batch_inv(x, G), 20),
-        "plain_ms": median_ms(lambda: field.batch_inv_plain(x, G), 3),
-        **_bound(*_cost("batch_inv", B))}
+    stats["batch_inv"] = _batch_inv_checks(rng, device, B)
     emit({"phase": "kernel", "name": "batch_inv", **stats["batch_inv"]})
-
+    lat = field_latency.measure(device)
+    emit({"phase": "field_latency", "unit": "SM cycles per call, one thread", **lat})
+    if not lat["inversions_agree"]:
+        raise AssertionError(f"field latency probe: fe_inv(fe_inv_var(x)) != x: {lat}")
     # K4 at the main path's L = 131072, S = 16, lanes 0/1 planted at +-C
     m = 1 << M_LOG2
     L, S = 131072, 16
@@ -363,6 +347,65 @@ def phase_kernels(device):
     stats.update(_hash_kernels(rng, device))
     stats.update(_vpu_kernels(device))
     return stats
+
+
+def _batch_inv_checks(rng, device, B: int) -> dict:
+    """K3 exactly against its plain version at 2^21, 2^20 + 1, 1, T*G and
+    T*G + 1 (one block, and the smallest call of three launches), each on
+    sampled columns against pow(x, p-2, p); at n = 1 over edge values (the
+    root inversion alone); and the zero contract: 0 and p planted at the
+    first, last and a tile-boundary column, and only those come out 0.
+    Times: the median CUDA-event ms at 2^21, and the device ms of one call
+    at n = 1 with the host's issue hidden (the root inversion and one
+    element's products)."""
+    import torch
+    from keyhunt_tpu_torch.ops import cuda_field, field, u256, vpu
+    P, norm = field.P_INT, field.norm
+    tile = field.BATCH_INV_THREADS * field.BATCH_INV_GROUP
+    x = norm(_rand_limbs(rng, B, device))
+    errs, widths = [], [B, (1 << 20) + 1, 1, tile, tile + 1]
+    for n in widths:
+        xx = x[:, :n].contiguous()
+        got = norm(cuda_field.batch_inv(xx))
+        errs.append(check_equal(f"batch_inv at width {n}", got,
+                                norm(field.batch_inv_plain(xx)), (xx,)))
+        cols = (sample_cols(np.random.default_rng(SEED + 2), n, 32) if n > 48
+                else list(range(n)))
+        gv, xv = u256.to_ints(got[:, cols]), u256.to_ints(xx[:, cols])
+        bad = [c for c, g, v in zip(cols, gv, xv) if g != pow(v, P - 2, P)]
+        if bad:
+            raise AssertionError(f"batch_inv: kernel != pow(x, p-2, p) at width "
+                                 f"{n}, columns {bad}")
+    edges = [0, 1, 2, P - 1, P, 1 << 255, P - (1 << 32), (1 << 256) - 1]
+    for v in edges:
+        one = u256.to_torch(u256.from_ints([v]), device)
+        g = u256.to_int(u256.to_numpy(norm(cuda_field.batch_inv(one))))
+        if g != pow(v % P, P - 2, P):
+            raise AssertionError(f"batch_inv: the root inversion of {hex(v)} "
+                                 f"gave {hex(g)}")
+    z = x[:, :tile + 40].clone()
+    zero_at = [0, 37, tile - 1, tile, tile + 39]
+    for c, v in zip(zero_at, [0, P, 0, P, 0]):
+        z[:, c] = u256.to_torch(u256.from_ints([v]), device)[:, 0]
+    got = norm(cuda_field.batch_inv(z))
+    zero_cols = np.nonzero((u256.to_numpy(got) == 0).all(axis=0))[0].tolist()
+    if zero_cols != zero_at:
+        raise AssertionError(f"batch_inv: zeros planted at {zero_at}, zero "
+                             f"outputs at {zero_cols}")
+    errs.append(check_equal("batch_inv zero contract", got,
+                            norm(field.batch_inv_plain(z)), (z,)))
+    x1 = x[:, :1].contiguous()
+    filler = torch.zeros(1 << 24, dtype=torch.int32, device=device)
+    ms1 = median_ms(lambda: cuda_field.batch_inv(x1), 20)
+    root = hidden_issue_ms(lambda: cuda_field.batch_inv(x1), ms1,
+                           lambda: vpu.independent(filler))
+    return {"max_abs_err": max(errs), "shape": [8, B], "widths_checked": widths,
+            "edge_values_at_n1": len(edges), "zeros_planted": zero_at,
+            "plan": field.batch_inv_plan(B)._asdict(),
+            "root_inversion_device_ms": root["device_ms"], "n1_event_ms": ms1,
+            "ms": median_ms(lambda: cuda_field.batch_inv(x), 20),
+            "plain_ms": median_ms(lambda: field.batch_inv_plain(x), 3),
+            **_bound(*_cost("batch_inv", B))}
 
 
 def hidden_issue_ms(fn, host_ms: float, spacer, calls: int = 20) -> dict:
@@ -1003,14 +1046,12 @@ def _path_shape_kernels(rng, device) -> dict:
     first columns (K3: random canonical values)."""
     from keyhunt_tpu_torch.ops import cuda_field, cuda_hash, field
     from keyhunt_tpu_torch.ops import hash160 as h160
-    G = field.BATCH_INV_GROUP
     return {
         "field_mul": (cuda_field.mul, field.mul_plain,
                       lambda n: _edged_pair(rng, n, device)),
         "field_sqr": (cuda_field.sqr, field.sqr_plain,
                       lambda n: _edged_pair(rng, n, device)[:1]),
-        "batch_inv": (lambda x: cuda_field.batch_inv(x, G),
-                      lambda x: field.batch_inv_plain(x, G),
+        "batch_inv": (cuda_field.batch_inv, field.batch_inv_plain,
                       lambda n: (field.norm(_rand_limbs(rng, n, device)),)),
         "hash160_both": (cuda_hash.hash160_both, h160.hash160_both_plain,
                          lambda n: _edged_pair(rng, n, device)[:1]),

@@ -26,7 +26,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)),
                           "build", "keyhunt_tpu_torch")
-SOURCES = ("field_kernels.cu", "jacwalk.cu", "hash160.cu", "bench_vpu.cu")
+SOURCES = ("field_kernels.cu", "jacwalk.cu", "hash160.cu", "bench_vpu.cu",
+           "field_latency.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,13 +38,14 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "kh_field_mul": [_VP, _VP, _VP, _I64, _VP],
     "kh_field_sqr": [_VP, _VP, _I64, _VP],
-    "kh_batch_inv": [_VP, _VP, _I64, _INT, _VP],
+    "kh_batch_inv": [_VP, _VP, _VP, _I64, _VP],
     "kh_giant_scan": [_VP] * 9 + [_I64, _INT, _VP, _VP],
     "kh_hash160_both": [_VP, _VP, _VP, _I64, _VP],
     "kh_hash160_uncompressed": [_VP, _VP, _VP, _I64, _VP],
     "kh_vpu_independent": [_VP, _VP, _I64, _VP],
     "kh_vpu_dependent": [_VP, _VP, _I64, _VP],
     "kh_vpu_rotate_mix": [_VP, _VP, _I64, _VP],
+    "kh_field_latency": [_VP, _VP, _VP, _VP],
 }
 
 #: kernel launches by kernel name, and by (kernel name, elements per
@@ -87,6 +89,12 @@ def _cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
 
 
+def nvcc_command(src: str, out: str, *defines: str) -> list[str]:
+    """The nvcc command that builds csrc/`src` into the library `out`."""
+    return [_cuda_tool("nvcc"), *NVCC_FLAGS, *defines, "-I", CSRC, "-o", out,
+            os.path.join(CSRC, src)]
+
+
 def build() -> dict[str, ctypes.CDLL]:
     """Compile (if needed) and load every kernel library; returns them by
     source stem. Raises with the compiler's output if a build fails."""
@@ -103,9 +111,8 @@ def build() -> dict[str, ctypes.CDLL]:
             if os.path.exists(so):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-                   os.path.join(CSRC, src)]
-            procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+            procs[stem] = (subprocess.Popen(nvcc_command(src, tmp),
+                                            stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, so)
         report = {}

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from . import field
 
 _LIB = "field_kernels"
 
@@ -61,15 +62,19 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def batch_inv(x: torch.Tensor, group: int) -> torch.Tensor:
-    """K3: elementwise inverse by Montgomery groups of `group` consecutive
-    elements (one Fermat chain per group; a zero zeroes its group)."""
+def batch_inv(x: torch.Tensor) -> torch.Tensor:
+    """K3: elementwise inverse by one Montgomery product tree per call and
+    one root inversion, in one launch or three (`field.batch_inv_plan`); an
+    element = 0 (mod p) comes out 0 and affects no other."""
     n = check_limbs(x)
-    if group < 1:
-        raise ValueError("group must be positive")
+    plan = field.batch_inv_plan(n)
     out = torch.empty_like(x)
+    # freed on return while the launches may still run: the caching
+    # allocator hands the block only to work queued after them on this stream
+    scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32,
+                          device=x.device)
     fn = _build.entry(_LIB, "kh_batch_inv")
-    _build.check(fn(x.data_ptr(), out.data_ptr(), n, group, _stream()),
-                 "kh_batch_inv")
+    _build.check(fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
+                    _stream()), "kh_batch_inv")
     _build.count_launch("batch_inv", n)
     return out

@@ -96,8 +96,9 @@ def jac_add_mixed(X1, Y1, Z1, x2, y2):
 
 def jac_to_affine(X, Y, Z):
     """Jacobian -> affine (x, y), lazy, through one batched inversion of Z
-    (kernel K3 on CUDA). A Z = 0 lane zeroes its batch_inv group; a hashed
-    scalar is never 0 mod n."""
+    (kernel K3 on CUDA). A Z = 0 lane (the point at infinity) comes out
+    (0, 0) and leaves the other lanes exact; a hashed scalar is never 0
+    mod n."""
     zinv = field.batch_inv(Z)
     zinv2 = field.sqr(zinv)
     return field.mul(X, zinv2), field.mul(Y, field.mul(zinv2, zinv))

@@ -14,8 +14,8 @@ so one inner step covers exactly [k0+stride, k0+A*W*stride], and the next
 pivot (advance by A*W*stride) is exactly the last offset column,
 point[a, W-1]: the pivot advance costs no extra inversion. All A*W slope
 denominators go through one `field.batch_inv` (kernel K3 on CUDA). The
-engine keeps pivot keys clear of +-offset keys, so no denominator is 0 and
-K3's zero poisoning of a group of 16 cannot occur.
+engine keeps pivot keys clear of +-offset keys, so no denominator is 0 (a
+zero would come out 0 and spoil only its own point).
 
 Per inner step, on CUDA: K3, then `curve.add_with_inv` (K1, K2), `norm`,
 with -e `endo_x` (K1), the hashes (K5 for the compressed prefixes, K6 for

@@ -86,21 +86,102 @@ def test_batch_inv_matches_jax_interpret_and_pow(vectors):
     assert got == [pow(v, P - 2, P) for v in vals]
 
 
-def test_batch_inv_zero_poisons_only_its_group():
-    """The port's poison domain is one group of BATCH_INV_GROUP consecutive
-    elements (the JAX kernel's is a chunk of 32 tiles)."""
-    G = field.BATCH_INV_GROUP
-    rng = np.random.default_rng(7)
-    vals = [int(v) % P or 3 for v in rng.integers(1, 1 << 62, size=5 * G + 3)]
-    vals[2 * G + 5] = 0
-    vals[4 * G] = P                    # lazy zero
+def _zeros_planted(n, seed):
+    """n random nonzero values with 0 and p planted at the first and last
+    element, at both sides of a kernel tile boundary and in between."""
+    rng = np.random.default_rng(seed)
+    vals = [int(v) % P or 3 for v in rng.integers(1, 1 << 62, size=n)]
+    tile = field.BATCH_INV_THREADS * field.BATCH_INV_GROUP
+    planted = {0: 0, n - 1: P, tile - 1: 0, tile: P, 37: 0}
+    for i, v in planted.items():
+        vals[i] = v
+    return vals, sorted(planted)
+
+
+def test_batch_inv_zero_maps_to_zero_alone():
+    """The zero contract: an element = 0 (mod p) -- 0 or p -- comes out 0
+    and every other element is its own inverse, wherever the zeros sit."""
+    vals, zeros = _zeros_planted(field.BATCH_INV_THREADS * field.BATCH_INV_GROUP + 40, 7)
     got = _ints(u256.to_numpy(field.norm(
         field.batch_inv(u256.to_torch(u256.from_ints(vals))))))
-    for i, (v, g) in enumerate(zip(vals, got)):
-        if i // G in (2, 4):
-            assert g == 0, i
-        else:
-            assert g == pow(v, P - 2, P), i
+    assert [i for i, g in enumerate(got) if g == 0] == zeros
+    assert got == [pow(v, P - 2, P) for v in vals]
+
+
+@pytest.fixture(scope="module")
+def plain_zero_case():
+    vals, _ = _zeros_planted(1100, 8)
+    x = u256.to_torch(u256.from_ints(vals))
+    return x, _ints(u256.to_numpy(field.norm(field.batch_inv_plain(x, 1))))
+
+
+@pytest.mark.parametrize("group", [1, 4, 16, 64])
+def test_batch_inv_plain_does_not_depend_on_group(plain_zero_case, group):
+    """The plain version's groups are its vectorisation only: with zeros in
+    the input every group size gives the same values (those of group 1,
+    which are pow(v, p-2, p))."""
+    x, want = plain_zero_case
+    got = _ints(u256.to_numpy(field.norm(field.batch_inv_plain(x, group))))
+    assert got == want
+    assert want == [pow(v, P - 2, P) for v in _ints(u256.to_numpy(x))]
+
+
+@pytest.mark.parametrize("n", [1, 63, 512, 1025, 131072, 131136, 1 << 18,
+                               1 << 21, (1 << 21) + 1])
+def test_batch_inv_plan_covers_n(n):
+    """K3's plan: blocks x T x G covers n with less than one tile to spare,
+    one block exactly when n <= T*G (then no scratch), else scratch for
+    each block's tree (8 x T words) and its product and inverse (8 each)."""
+    plan = field.batch_inv_plan(n)
+    tile = plan.threads * plan.group
+    assert (plan.threads, plan.group) == (field.BATCH_INV_THREADS, field.BATCH_INV_GROUP)
+    assert plan.blocks * tile >= n > (plan.blocks - 1) * tile
+    assert (plan.blocks == 1) == (n <= tile)
+    need = 0 if plan.blocks == 1 else plan.blocks * 8 * plan.threads + 2 * 8 * plan.blocks
+    assert plan.scratch_words >= need
+    with pytest.raises(ValueError):
+        field.batch_inv_plan(0)
+
+
+@pytest.mark.parametrize("v", [0, 1, 2, P - 1, 1 << 255, P - (1 << 32), P,
+                               (1 << 256) - 1])
+def test_safegcd_model_edges(v):
+    inv, batches = field.inv_safegcd(v)
+    assert inv == pow(v % P, P - 2, P)
+    assert 1 <= batches <= field.SAFEGCD_MAX_BATCHES
+
+
+def test_safegcd_model_seeded_values():
+    """The root inversion's steps on 10^4 seeded values: each equals
+    pow(v, p-2, p) and ends within the stated batch count (random inputs
+    take 18-19 batches of 30 divsteps)."""
+    rng = np.random.default_rng(99)
+    words = rng.integers(0, 1 << 32, size=(10_000, 8), dtype=np.uint64)
+    counts = []
+    for row in words.tolist():
+        v = sum(w << (32 * i) for i, w in enumerate(row)) % P
+        inv, batches = field.inv_safegcd(v)
+        assert inv == pow(v, P - 2, P), hex(v)
+        counts.append(batches)
+    assert max(counts) <= field.SAFEGCD_MAX_BATCHES
+    assert 17 <= sum(counts) / len(counts) <= 20
+
+
+def test_cuda_sources_match_python_constants():
+    """The CUDA sources cannot be compiled here; their constants that the
+    Python side relies on are read from the text: K3's geometry (the
+    plan's T and G), p^-1 mod 2^30, p's signed 30-bit limbs and the batch
+    bound of the root inversion."""
+    csrc = _build.CSRC
+    kern = open(f"{csrc}/field_kernels.cu").read()
+    cuh = open(f"{csrc}/field.cuh").read()
+    assert f"#define KH_BINV_THREADS {field.BATCH_INV_THREADS}\n" in kern
+    assert f"#define KH_BINV_GROUP {field.BATCH_INV_GROUP}\n" in kern
+    assert f"kPInv30 = 0x{field.P_INV30:X}u;" in cuh
+    assert f"kSafegcdMaxBatches = {field.SAFEGCD_MAX_BATCHES};" in cuh
+    assert ("i == 0 ? -0x3D1 : i == 1 ? -4 : i == 8 ? 65536 : 0" in cuh
+            and field.P30 == (-0x3D1, -4, 0, 0, 0, 0, 0, 0, 65536))
+    assert sum(a << (30 * i) for i, a in enumerate(field.P30)) == P
 
 
 def test_inv_matches_pow(vectors):
@@ -137,7 +218,7 @@ def test_cpu_routes_to_plain_and_kernels_refuse_cpu(vectors):
     field.mul(ta, tb), field.sqr(ta), field.batch_inv(field.add(ta, tb))
     assert dict(_build.LAUNCHES) == before
     for fn, args in ((cuda_field.mul, (ta, tb)), (cuda_field.sqr, (ta,)),
-                     (cuda_field.batch_inv, (ta, 32))):
+                     (cuda_field.batch_inv, (ta,))):
         with pytest.raises(ValueError, match="expected cuda"):
             fn(*args)
 
