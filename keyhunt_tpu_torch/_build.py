@@ -64,8 +64,9 @@ def reset_launches() -> None:
     LAUNCH_WIDTHS.clear()
 
 
-def count_launch(name: str, n: int) -> None:
-    """Count one launch of kernel `name` over n elements (lanes)."""
+def count_launch(name: str, n) -> None:
+    """Count one launch of kernel `name` at width n: its element (lane)
+    count, or for K4 the pair (lanes, steps)."""
     LAUNCHES[name] += 1
     LAUNCH_WIDTHS[name, n] += 1
 
@@ -89,10 +90,43 @@ def _cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
 
 
-def nvcc_command(src: str, out: str, *defines: str) -> list[str]:
-    """The nvcc command that builds csrc/`src` into the library `out`."""
-    return [_cuda_tool("nvcc"), *NVCC_FLAGS, *defines, "-I", CSRC, "-o", out,
-            os.path.join(CSRC, src)]
+def nvcc_command(src: str, out: str, *defines: str, csrc: str = CSRC) -> list[str]:
+    """The nvcc command that builds `csrc`/`src` into the library `out`."""
+    return [_cuda_tool("nvcc"), *NVCC_FLAGS, *defines, "-I", csrc, "-o", out,
+            os.path.join(csrc, src)]
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signature of every entry point `lib` has."""
+    for fn, argtypes in _SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def build_variants(src: str, name: str,
+                   variants: dict[str, tuple]) -> dict[str, tuple]:
+    """Build `src` once per variant, all in parallel, under
+    build/keyhunt_tpu_torch/`name`/: `variants` maps a label to (the -D
+    flags, the source directory); returns label -> (the loaded library, its
+    path, nvcc's output with the ptxas report). For the tools that time other
+    geometries or other versions of a kernel."""
+    outdir = os.path.join(BUILD_ROOT, name, _source_hash())
+    os.makedirs(outdir, exist_ok=True)
+    procs = {}
+    for label, (defines, csrc) in variants.items():
+        so = os.path.join(outdir, f"lib{label}.so")
+        procs[label] = (subprocess.Popen(nvcc_command(src, so, *defines, csrc=csrc),
+                                         stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), so)
+    built = {}
+    for label, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} ({label}):\n{out}")
+        built[label] = (_bind(ctypes.CDLL(so)), so, out)
+    return built
 
 
 def build() -> dict[str, ctypes.CDLL]:
@@ -129,12 +163,7 @@ def build() -> dict[str, ctypes.CDLL]:
             if os.path.exists(log):
                 with open(log) as fh:
                     report[stem] = fh.read()
-            lib = ctypes.CDLL(os.path.join(outdir, f"lib{stem}.so"))
-            for fn, argtypes in _SIGNATURES.items():
-                if hasattr(lib, fn):
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-            _libs[stem] = lib
+            _libs[stem] = _bind(ctypes.CDLL(os.path.join(outdir, f"lib{stem}.so")))
         BUILD_INFO.update(seconds=time.time() - t0, dir=outdir,
                           compiled=sorted(procs), ptxas=report)
         return _libs
@@ -150,7 +179,20 @@ def check(rc: int, fn: str) -> None:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
 
 
-_SASS = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]+?)\s*;")
+_SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]+?)\s*;")
+_BRANCH = re.compile(r"\bBRA(?:\.\S+)?\s.*?0x([0-9a-f]+)")
+
+
+def _sass_functions(text: str):
+    """(mangled name, [(address, instruction)], NOPs left out) of each
+    kernel in a ``cuobjdump -sass`` listing."""
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                 text, re.S):
+        yield name, [(int(at, 16), i) for at, i in _SASS.findall(body) if i != "NOP"]
+
+
+def _opcode(words: list[str]) -> str:
+    return words[1] if words[0].startswith("@") else words[0]
 
 
 def count_sass(text: str) -> dict[str, collections.Counter]:
@@ -161,19 +203,52 @@ def count_sass(text: str) -> dict[str, collections.Counter]:
     For straight-line code -- loops unrolled, no branch but a predicated
     exit -- each thread issues each of these once."""
     counts = {}
-    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                                 text, re.S):
-        ins = [i.split() for i in _SASS.findall(body) if i != "NOP"]
+    for name, listing in _sass_functions(text):
+        ins = [i.split() for _, i in listing]
         last_exit = max(n for n, i in enumerate(ins) if i == ["EXIT"])
-        counts[name] = collections.Counter(i[1] if i[0].startswith("@") else i[0]
-                                           for i in ins[:last_exit + 1])
+        counts[name] = collections.Counter(_opcode(i) for i in ins[:last_exit + 1])
     return counts
+
+
+def count_loop_sass(text: str) -> dict[str, collections.Counter]:
+    """Opcode counts, as `count_sass` gives them, of the outermost loop of
+    each kernel in a ``cuobjdump -sass`` listing: the instructions from the
+    target of the backward branch that spans the most code to that branch,
+    both included (none for a kernel with no backward branch). Where one
+    pass of a loop is one unit of a kernel's work (K4's step), this is
+    what a thread issues per unit, less what forward branches inside the
+    loop skip."""
+    loops = {}
+    for name, listing in _sass_functions(text):
+        back = [(int(m.group(1), 16), at) for at, i in listing
+                if (m := _BRANCH.search(i)) and int(m.group(1), 16) < at]
+        lo, hi = max(back, key=lambda b: b[1] - b[0], default=(1, 0))
+        loops[name] = collections.Counter(_opcode(i.split()) for at, i in listing
+                                          if lo <= at <= hi)
+    return loops
+
+
+def sass_listing(so: str) -> str:
+    """``cuobjdump -sass`` of the library `so`."""
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def sass_instructions(stem: str) -> dict[str, collections.Counter]:
     """`count_sass` of the built library `stem`."""
     build()
-    so = os.path.join(BUILD_INFO["dir"], f"lib{stem}.so")
-    return count_sass(subprocess.run([_cuda_tool("cuobjdump"), "-sass", so],
-                                     capture_output=True, text=True,
-                                     check=True).stdout)
+    return count_sass(sass_listing(os.path.join(BUILD_INFO["dir"], f"lib{stem}.so")))
+
+
+def ptxas_usage(text: str) -> dict[str, dict]:
+    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v``
+    output, by (mangled) entry function name."""
+    usage = {}
+    for fn, body in re.findall(r"Compiling entry function '([^']+)'(.*?)"
+                               r"(?=Compiling entry function|\Z)", text, re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        usage[fn] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spills.group(1)) if spills else None,
+                     "spill_loads": int(spills.group(2)) if spills else None}
+    return usage

@@ -7,10 +7,25 @@
 //
 // Replaces the 16-bit half-limb convolution of keyhunt_tpu/ops/pallas_field.py
 // (`_conv_terms`, `_accumulate_conv`, `_finish`), which existed only because
-// the TPU's vector unit has no 32x32->64 multiply. Here each limb product is
-// one IMAD.WIDE.U32 (a 64-bit result), and carries ride in 64-bit sums, so a
-// product is 64 wide multiplies plus two folds. Only the output contract of
-// the TPU kernel carries over: lazy, < 2^256, congruent to the product.
+// the TPU's vector unit has no 32x32->64 multiply. Only the output contract
+// of the TPU kernel carries over: lazy, < 2^256, congruent to the product.
+//
+// Products, sums and differences run on PTX carry chains. A 32x32 limb
+// product enters a chain as a pair, `mad.lo.cc` into word k and
+// `madc.hi.cc` into word k + 1, so its halves and the carries between words
+// cost no separate adds. The products of a row are split by the parity of
+// their weight: one of even weight (i + j) lands on an aligned word pair of
+// the even accumulator `e`, one of odd weight on an aligned pair of the odd
+// accumulator `o` (held one word down), and the two meet in one add chain
+// at the end. Each row thus runs two independent chains, and each pair on
+// aligned words issues as one wide multiply-add with carry in and out
+// (IMAD.WIDE.U32.X on sm_90a): 64 of them for a product, 36 for a square.
+//
+// Each primitive is one PTX instruction in its own `asm volatile`
+// statement; the carry flag (CC.CF) runs from one statement to the next,
+// which nvcc keeps in program order. Built with KH_HOST_EMULATION (and no
+// CUDA), the primitives are C++ on a static carry flag, so the arithmetic
+// can be checked on a CPU (tests/test_torch_jacwalk.py).
 #pragma once
 
 #include <stdint.h>
@@ -21,159 +36,267 @@ struct fe {
     uint32_t v[8];
 };
 
-KH_INLINE uint64_t kh_mul_wide(uint32_t a, uint32_t b) {
-    return (uint64_t)a * (uint64_t)b;
+#if defined(KH_HOST_EMULATION) && !defined(__CUDA_ARCH__)
+
+static uint32_t kh_cf;   // the emulated carry flag (a borrow after a sub)
+
+static inline uint32_t kh_set(uint64_t t) {
+    kh_cf = (uint32_t)(t >> 32) & 1u;
+    return (uint32_t)t;
+}
+static inline uint32_t kh_lo(uint32_t a, uint32_t b) { return a * b; }
+static inline uint32_t kh_hi(uint32_t a, uint32_t b) {
+    return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+KH_INLINE uint32_t add_cc(uint32_t a, uint32_t b) { return kh_set((uint64_t)a + b); }
+KH_INLINE uint32_t addc_cc(uint32_t a, uint32_t b) {
+    return kh_set((uint64_t)a + b + kh_cf);
+}
+KH_INLINE uint32_t addc(uint32_t a, uint32_t b) { return a + b + kh_cf; }
+KH_INLINE uint32_t sub_cc(uint32_t a, uint32_t b) { return kh_set((uint64_t)a - b); }
+KH_INLINE uint32_t subc_cc(uint32_t a, uint32_t b) {
+    return kh_set((uint64_t)a - b - kh_cf);
+}
+KH_INLINE uint32_t subc(uint32_t a, uint32_t b) { return a - b - kh_cf; }
+KH_INLINE uint32_t mul_lo(uint32_t a, uint32_t b) { return kh_lo(a, b); }
+KH_INLINE uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return kh_set((uint64_t)kh_lo(a, b) + c);
+}
+KH_INLINE uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return kh_set((uint64_t)kh_lo(a, b) + c + kh_cf);
+}
+KH_INLINE uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return kh_set((uint64_t)kh_hi(a, b) + c);
+}
+KH_INLINE uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    return kh_set((uint64_t)kh_hi(a, b) + c + kh_cf);
+}
+KH_INLINE uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+    return kh_hi(a, b) + c + kh_cf;
+}
+KH_INLINE uint32_t shl_funnel(uint32_t lo, uint32_t hi) {   // (hi:lo << 1) >> 32
+    return (hi << 1) | (lo >> 31);
 }
 
-// 512-bit value r[16] -> lazy 256-bit residue mod p.
-KH_INLINE fe fe_reduce512(const uint32_t r[16]) {
-    fe o;
-    // fold 1: lo + hi*977 + (hi << 32); every column sum stays < 2^44
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t t = (uint64_t)r[i] + kh_mul_wide(r[8 + i], 977u) + c;
-        if (i > 0) t += r[7 + i];
-        o.v[i] = (uint32_t)t;
-        c = t >> 32;
+#else
+
+#define KH_PTX2(name, op)                                                   \
+    KH_INLINE uint32_t name(uint32_t a, uint32_t b) {                      \
+        uint32_t d;                                                         \
+        asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));         \
+        return d;                                                           \
     }
-    uint64_t top = c + r[15];                 // < 2^33: the new 2^256 digit
-    // fold 2: top * D = top*977 + (top << 32)
-    uint64_t t = (uint64_t)o.v[0] + top * 977u;
-    o.v[0] = (uint32_t)t;
-    t = (t >> 32) + (uint64_t)o.v[1] + top;
-    o.v[1] = (uint32_t)t;
-    c = t >> 32;
-#pragma unroll
-    for (int i = 2; i < 8; ++i) {
-        t = (uint64_t)o.v[i] + c;
-        o.v[i] = (uint32_t)t;
-        c = t >> 32;
+#define KH_PTX3(name, op)                                                   \
+    KH_INLINE uint32_t name(uint32_t a, uint32_t b, uint32_t c) {          \
+        uint32_t d;                                                         \
+        asm volatile(op " %0, %1, %2, %3;" : "=r"(d)                       \
+                     : "r"(a), "r"(b), "r"(c));                             \
+        return d;                                                           \
     }
-    // fold 3: a last carry bit; the value is then < D, so this cannot wrap
-    t = (uint64_t)o.v[0] + c * 977u;
-    o.v[0] = (uint32_t)t;
-    t = (t >> 32) + (uint64_t)o.v[1] + c;
-    o.v[1] = (uint32_t)t;
-    c = t >> 32;
-#pragma unroll
-    for (int i = 2; i < 8; ++i) {
-        t = (uint64_t)o.v[i] + c;
-        o.v[i] = (uint32_t)t;
-        c = t >> 32;
-    }
-    return o;
+KH_PTX2(add_cc, "add.cc.u32")
+KH_PTX2(addc_cc, "addc.cc.u32")
+KH_PTX2(addc, "addc.u32")
+KH_PTX2(sub_cc, "sub.cc.u32")
+KH_PTX2(subc_cc, "subc.cc.u32")
+KH_PTX2(subc, "subc.u32")
+KH_PTX2(mul_lo, "mul.lo.u32")
+KH_PTX3(mad_lo_cc, "mad.lo.cc.u32")
+KH_PTX3(madc_lo_cc, "madc.lo.cc.u32")
+KH_PTX3(mad_hi_cc, "mad.hi.cc.u32")
+KH_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+KH_PTX3(madc_hi, "madc.hi.u32")
+#undef KH_PTX2
+#undef KH_PTX3
+KH_INLINE uint32_t shl_funnel(uint32_t lo, uint32_t hi) {
+    return __funnelshift_l(lo, hi, 1);
 }
 
+#endif
+
+// One row of products b * a[j], j = J0, J0 + 2, ... <= 7, added into the
+// aligned word pairs acc[W0 + j - J0], acc[W0 + j - J0 + 1] as one carry
+// chain. The carry out of the last pair is written to the next word when
+// CARRY_OUT (that word is 0 before the row); otherwise the caller's bound
+// on the accumulated sum makes it 0.
+template <int J0, int W0, bool CARRY_OUT, int N>
+KH_INLINE void chain_row(uint32_t (&acc)[N], const uint32_t a[8], uint32_t b) {
+    acc[W0] = mad_lo_cc(a[J0], b, acc[W0]);
+    acc[W0 + 1] = madc_hi_cc(a[J0], b, acc[W0 + 1]);
+#pragma unroll
+    for (int j = J0 + 2; j < 8; j += 2) {
+        acc[W0 + j - J0] = madc_lo_cc(a[j], b, acc[W0 + j - J0]);
+        acc[W0 + j - J0 + 1] = madc_hi_cc(a[j], b, acc[W0 + j - J0 + 1]);
+    }
+    if constexpr (CARRY_OUT) acc[W0 + 2 * ((7 - J0) / 2) + 2] = addc(0u, 0u);
+}
+
+// The rows I.. of a * b: row I adds b[I] * a, its products of even weight
+// I + j into e (word = weight), those of odd weight into o (word = weight
+// - 1). After row I each accumulator holds less than 2^(32 (I + 9)) in
+// weight terms, which makes the carry out of the rows that end at weight
+// I + 8 zero.
+template <int I>
+KH_INLINE void mul_rows(uint32_t (&e)[16], uint32_t (&o)[15], const uint32_t a[8],
+                        const uint32_t b[8]) {
+    if constexpr (I % 2 == 0) {
+        chain_row<0, I, true>(e, a, b[I]);       // weights I .. I+7, carry I+8
+        chain_row<1, I, false>(o, a, b[I]);      // weights I+1 .. I+8
+    } else {
+        chain_row<1, I + 1, false>(e, a, b[I]);  // weights I+1 .. I+8
+        chain_row<0, I - 1, true>(o, a, b[I]);   // weights I .. I+7, carry I+8
+    }
+    if constexpr (I < 7) mul_rows<I + 1>(e, o, a, b);
+}
+
+// The off-diagonal rows I.. of a^2: row I adds a[I] * a[j] for j > I,
+// j = I+2, I+4, ... (even weight) into e and j = I+1, I+3, ... into o.
+template <int I>
+KH_INLINE void sqr_rows(uint32_t (&e)[16], uint32_t (&o)[15], const uint32_t a[8]) {
+    if constexpr (I % 2 == 0) {
+        if constexpr (I + 2 < 8) chain_row<I + 2, 2 * I + 2, true>(e, a, a[I]);
+        chain_row<I + 1, 2 * I, false>(o, a, a[I]);
+    } else {
+        chain_row<I + 2, 2 * I + 2, false>(e, a, a[I]);
+        chain_row<I + 1, 2 * I, true>(o, a, a[I]);
+    }
+    if constexpr (I < 6) sqr_rows<I + 1>(e, o, a);
+}
+
+// r = e + o, o one word down: one add chain.
+KH_INLINE void join_parity(uint32_t r[16], const uint32_t (&e)[16],
+                           const uint32_t (&o)[15]) {
+    r[0] = e[0];
+    r[1] = add_cc(e[1], o[0]);
+#pragma unroll
+    for (int k = 2; k < 15; ++k) r[k] = addc_cc(e[k], o[k - 1]);
+    r[15] = addc(e[15], o[14]);
+}
+
+// 512-bit r -> lazy 256-bit residue. Fold 1: s = lo + 977 hi + 2^32 hi
+// (< 2^289, a two-word top) as two parity chains, e = lo + 977 h[j] for
+// even j and o (one word down) = (hi << 32) + 977 h[j] for odd j, each
+// product on an aligned pair; then the top times D, then the last carry
+// times D, which reaches word 2 at most (after a wrap the value is < 2^66).
+KH_INLINE fe fe_reduce(const uint32_t r[16]) {
+    const uint32_t k977 = 977u;
+    uint32_t e[9], o[9], s[10];
+    e[0] = mad_lo_cc(r[8], k977, r[0]);
+    e[1] = madc_hi_cc(r[8], k977, r[1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+        e[j] = madc_lo_cc(r[8 + j], k977, r[j]);
+        e[j + 1] = madc_hi_cc(r[8 + j], k977, r[j + 1]);
+    }
+    e[8] = addc(0u, 0u);
+    o[0] = mad_lo_cc(r[9], k977, r[8]);
+    o[1] = madc_hi_cc(r[9], k977, r[9]);
+#pragma unroll
+    for (int j = 3; j < 8; j += 2) {
+        o[j - 1] = madc_lo_cc(r[8 + j], k977, r[7 + j]);
+        o[j] = madc_hi_cc(r[8 + j], k977, r[8 + j]);
+    }
+    o[8] = addc(0u, 0u);
+    s[0] = e[0];
+    s[1] = add_cc(e[1], o[0]);
+#pragma unroll
+    for (int k = 2; k < 9; ++k) s[k] = addc_cc(e[k], o[k - 1]);
+    s[9] = addc(o[8], 0u);
+    // top = s[8] + 2^32 s[9] < 2^33, and t = top * D in three words
+    uint32_t t0 = mul_lo(s[8], k977);
+    uint32_t t1 = mad_hi_cc(s[8], k977, s[8]);
+    uint32_t t2 = addc(s[9], 0u);
+    t1 = mad_lo_cc(s[9], k977, t1);
+    t2 = addc(t2, 0u);
+    fe out;
+    out.v[0] = add_cc(s[0], t0);
+    out.v[1] = addc_cc(s[1], t1);
+    out.v[2] = addc_cc(s[2], t2);
+#pragma unroll
+    for (int i = 3; i < 8; ++i) out.v[i] = addc_cc(s[i], 0u);
+    uint32_t c = addc(0u, 0u);
+    out.v[0] = add_cc(out.v[0], (0u - c) & k977);
+    out.v[1] = addc_cc(out.v[1], c);
+    out.v[2] = addc(out.v[2], 0u);
+    return out;
+}
+
+// a * b mod p, lazy: 64 limb products in 16 chains of 4 pairs.
 KH_INLINE fe fe_mul(const fe& a, const fe& b) {
-    uint32_t r[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) r[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            uint64_t t = kh_mul_wide(a.v[i], b.v[j]) + r[i + j] + c;
-            r[i + j] = (uint32_t)t;
-            c = t >> 32;
-        }
-        r[i + 8] = (uint32_t)c;
-    }
-    return fe_reduce512(r);
+    uint32_t e[16] = {}, o[15] = {}, r[16];
+    mul_rows<0>(e, o, a.v, b.v);
+    join_parity(r, e, o);
+    return fe_reduce(r);
 }
 
-// a^2 from the j > i limb products (doubled) plus the diagonal: 36 wide
-// multiplies instead of 64, the same saving as pallas_field's
-// `_accumulate_conv_sqr`.
+// a^2 mod p, lazy: the 28 off-diagonal products, doubled by a one-bit
+// funnel shift, plus the 8 squares a[i]^2 on the pairs (2i, 2i + 1) in one
+// chain.
 KH_INLINE fe fe_sqr(const fe& a) {
-    uint32_t r[16];
+    uint32_t e[16] = {}, o[15] = {}, t[16], r[16];
+    sqr_rows<0>(e, o, a.v);
+    join_parity(t, e, o);                 // < 2^511: doubling loses no bit
+    r[0] = t[0] << 1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) r[i] = 0;
+    for (int k = 1; k < 16; ++k) r[k] = shl_funnel(t[k - 1], t[k]);
+    r[0] = mad_lo_cc(a.v[0], a.v[0], r[0]);
+    r[1] = madc_hi_cc(a.v[0], a.v[0], r[1]);
 #pragma unroll
-    for (int i = 0; i < 7; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = i + 1; j < 8; ++j) {
-            uint64_t t = kh_mul_wide(a.v[i], a.v[j]) + r[i + j] + c;
-            r[i + j] = (uint32_t)t;
-            c = t >> 32;
-        }
-        r[i + 8] = (uint32_t)c;
+    for (int i = 1; i < 7; ++i) {
+        r[2 * i] = madc_lo_cc(a.v[i], a.v[i], r[2 * i]);
+        r[2 * i + 1] = madc_hi_cc(a.v[i], a.v[i], r[2 * i + 1]);
     }
-    // double the off-diagonal sum (it is < 2^511, so no bit is lost)
-#pragma unroll
-    for (int i = 15; i > 0; --i) r[i] = (r[i] << 1) | (r[i - 1] >> 31);
-    r[0] <<= 1;
-    // add the diagonal a_i^2 at limb 2i
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t d = kh_mul_wide(a.v[i], a.v[i]);
-        uint64_t t = (uint64_t)r[2 * i] + (uint32_t)d + c;
-        r[2 * i] = (uint32_t)t;
-        t = (t >> 32) + (uint64_t)r[2 * i + 1] + (d >> 32);
-        r[2 * i + 1] = (uint32_t)t;
-        c = t >> 32;
-    }
-    return fe_reduce512(r);
+    r[14] = madc_lo_cc(a.v[7], a.v[7], r[14]);
+    r[15] = madc_hi(a.v[7], a.v[7], r[15]);
+    return fe_reduce(r);
 }
 
-// (a + b) mod p, lazy: add, then fold the carry (twice at most).
+// (a + b) mod p, lazy: one carry chain, one fold of the carry by D, and a
+// second fold that can only occur after a wrap, when the value is < 2^34
+// (words 0-1).
 KH_INLINE fe fe_add(const fe& a, const fe& b) {
     fe o;
-    uint64_t c = 0;
+    o.v[0] = add_cc(a.v[0], b.v[0]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t t = (uint64_t)a.v[i] + b.v[i] + c;
-        o.v[i] = (uint32_t)t;
-        c = t >> 32;
-    }
+    for (int i = 1; i < 8; ++i) o.v[i] = addc_cc(a.v[i], b.v[i]);
+    uint32_t c = addc(0u, 0u);
+    o.v[0] = add_cc(o.v[0], (0u - c) & 977u);
+    o.v[1] = addc_cc(o.v[1], c);
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-        uint64_t t = (uint64_t)o.v[0] + c * 977u;
-        o.v[0] = (uint32_t)t;
-        t = (t >> 32) + (uint64_t)o.v[1] + c;
-        o.v[1] = (uint32_t)t;
-        c = t >> 32;
-#pragma unroll
-        for (int i = 2; i < 8; ++i) {
-            t = (uint64_t)o.v[i] + c;
-            o.v[i] = (uint32_t)t;
-            c = t >> 32;
-        }
-    }
+    for (int i = 2; i < 8; ++i) o.v[i] = addc_cc(o.v[i], 0u);
+    c = addc(0u, 0u);
+    o.v[0] = add_cc(o.v[0], (0u - c) & 977u);
+    o.v[1] = addc(o.v[1], c);
     return o;
 }
 
-// (a - b) mod p, lazy: subtract, then take D off for each borrow (twice at
-// most; after the first the value is >= 2^256 - D, so the second is final).
+// (a - b) mod p, lazy: one borrow chain, D taken off for a borrow, and
+// once more only after a second borrow, when the value lies in
+// [2^256 - D, 2^256) and the subtraction stays in words 0-1.
 KH_INLINE fe fe_sub(const fe& a, const fe& b) {
     fe o;
-    uint32_t borrow = 0;
+    o.v[0] = sub_cc(a.v[0], b.v[0]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t t = (uint64_t)a.v[i] - b.v[i] - borrow;
-        o.v[i] = (uint32_t)t;
-        borrow = (uint32_t)(t >> 63);
-    }
+    for (int i = 1; i < 8; ++i) o.v[i] = subc_cc(a.v[i], b.v[i]);
+    uint32_t m = subc(0u, 0u);                        // 0 or 0xFFFFFFFF
+    o.v[0] = sub_cc(o.v[0], m & 977u);
+    o.v[1] = subc_cc(o.v[1], m & 1u);
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-        uint64_t t = (uint64_t)o.v[0] - (uint64_t)borrow * 977u;
-        o.v[0] = (uint32_t)t;
-        uint32_t b2 = (uint32_t)(t >> 63);
-        t = (uint64_t)o.v[1] - borrow - b2;
-        o.v[1] = (uint32_t)t;
-        b2 = (uint32_t)(t >> 63);
-#pragma unroll
-        for (int i = 2; i < 8; ++i) {
-            t = (uint64_t)o.v[i] - b2;
-            o.v[i] = (uint32_t)t;
-            b2 = (uint32_t)(t >> 63);
-        }
-        borrow = b2;
-    }
+    for (int i = 2; i < 8; ++i) o.v[i] = subc_cc(o.v[i], 0u);
+    m = subc(0u, 0u);
+    o.v[0] = sub_cc(o.v[0], m & 977u);
+    o.v[1] = subc(o.v[1], m & 1u);
     return o;
+}
+
+// Is a lazy a == 0 mod p? For a < 2^256 that is a == 0 or a == p.
+KH_INLINE bool fe_is_zero_mod_p(const fe& a) {
+    uint32_t any = 0, all = 0xFFFFFFFFu;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) any |= a.v[i];
+#pragma unroll
+    for (int i = 2; i < 8; ++i) all &= a.v[i];
+    return any == 0 ||
+           ((a.v[0] ^ 0xFFFFFC2Fu) | (a.v[1] ^ 0xFFFFFFFEu) | ~all) == 0;
 }
 
 // Canonical form: subtract p once if a >= p (a + D carries out exactly then).

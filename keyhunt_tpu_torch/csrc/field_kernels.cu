@@ -7,9 +7,9 @@
 // (pallas_call `_mul_call`), K2 `kh_field_sqr` replaces `_sqr_kernel`
 // (`_sqr_call`). One thread per element; the eight limb loads of a warp are
 // each 128 contiguous bytes. What bounds them on the H100: device memory --
-// 32 B read per operand and 32 B written per element, against 64 (36 for
-// the square) IMAD.WIDE plus ~80 adds that the integer units finish sooner
-// (K1 moves ~2.3 TB/s at 2^21 elements, PERF.md). The design keeps every
+// 32 B read per operand and 32 B written per element, against 64 limb
+// products (36 for the square) on field.cuh's carry chains, which the
+// integer units finish sooner (PERF.md). The design keeps every
 // intermediate in registers, so device memory sees only the operands and
 // the result, and masks the ragged edge so that any n is accepted (the TPU
 // kernel wanted a multiple of its 8192-element tile).
@@ -19,7 +19,7 @@
 // root inversion `_inv_chain`. Its function's work is 3 field products per
 // element and one inversion per call, 64 bytes per element, but what
 // bounds it on the H100 is latency: a call is a chain of ~2 log2(n)
-// dependent products (each ~900 SM cycles in one thread) around one
+// dependent products (each ~540 SM cycles in one thread) around one
 // inversion, and even at 2^21 the passes hold too few warps per scheduler
 // to hide a product's chain (PERF.md). The TPU design carries over in structure,
 // one Montgomery product tree per call, but not in its mechanics: its

@@ -3,30 +3,32 @@
 // Replaces keyhunt_tpu/ops/jacwalk.py `_scan_kernel_body` (pallas_call
 // `_scan_call`, step `_madd_const`). Each lane walks S steps of
 // P += C (Jacobian X, Y, Z plus the affine constant C, 8 mul + 3 sqr a
-// step). Before each step it emits (X, Z) into step-major (8, S*L) arrays
-// (flat query index s*L + lane, coalesced across lanes) and after it the
-// degeneracy flag H == 0 into an (S, L) mask. H is tested after
-// normalisation, because a lazy H may equal p. A degenerate lane restarts
-// at (Gx, Gy, 1): the JAX docstring says C, but its code restarts at G and
-// the port follows the code, so a restarted lane cannot x-equal C again.
+// step, `giant_step` in jacwalk.cuh). Before each step it emits (X, Z)
+// into step-major (8, S*L) arrays (flat query index s*L + lane, coalesced
+// across lanes) and after it the degeneracy flag H == 0 mod p into an
+// (S, L) mask. A degenerate lane restarts at (Gx, Gy, 1): the JAX
+// docstring says C, but its code restarts at G and the port follows the
+// code, so a restarted lane cannot x-equal C again.
 //
-// One thread per lane with X, Y, Z, C and G in registers (C and G ride in
-// the kernel's parameter space). What bounds it on the H100: integer issue
-// (~11 field multiplies a step) and register pressure -- the step keeps
-// about eight field elements live, so `-Xptxas -v` registers and spills are
-// recorded in PERF.md. Device memory sees the state once in and once out
-// plus 64 B of emission and 4 B of flag per lane and step.
+// One thread per lane with X, Y, Z in registers and C and G in the
+// kernel's parameter space. What bounds it on the H100 is integer issue:
+// device memory sees the state once in and once out plus 64 B of emission
+// and 4 B of flag per lane and step, against ~1,700 SASS instructions in
+// the step loop, ~700 of them wide multiply-adds. The design keeps that
+// count low: field.cuh's carry chains make each limb product one wide
+// multiply-add in a chain and fold once per add or sub, and H is tested
+// against 0 and p with no normalisation. Blocks of 128 threads, registers
+// not capped:
+// capping them at 80 (6 warps per scheduler) spilled and was no faster
+// than 3 warps per scheduler at 132 (PERF.md).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "jacwalk.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-struct WalkConsts {
-    fe cx, cy, gx, gy;
-};
 
 __global__ void giant_scan_kernel(const uint32_t* __restrict__ xin,
                                   const uint32_t* __restrict__ yin,
@@ -48,30 +50,7 @@ __global__ void giant_scan_kernel(const uint32_t* __restrict__ xin,
         int64_t q = (int64_t)s * L + lane;
         fe_store(xs, SL, q, X);               // emit BEFORE the advance
         fe_store(zs, SL, q, Z);
-        fe z2 = fe_sqr(Z);
-        fe z3 = fe_mul(z2, Z);
-        fe u2 = fe_mul(k.cx, z2);
-        fe s2 = fe_mul(k.cy, z3);
-        fe h = fe_sub(u2, X);
-        fe r = fe_sub(s2, Y);
-        bool dg = fe_is_zero(fe_norm(h));
-        fe hh = fe_sqr(h);
-        fe hhh = fe_mul(h, hh);
-        fe t = fe_mul(X, hh);
-        fe x3 = fe_sub(fe_sub(fe_sqr(r), hhh), fe_add(t, t));
-        fe y3 = fe_sub(fe_mul(r, fe_sub(t, x3)), fe_mul(Y, hhh));
-        fe z3n = fe_mul(Z, h);
-        degen[q] = dg ? 1u : 0u;
-        if (dg) {
-            X = k.gx;
-            Y = k.gy;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) Z.v[i] = i == 0 ? 1u : 0u;
-        } else {
-            X = x3;
-            Y = y3;
-            Z = z3n;
-        }
+        degen[q] = giant_step(X, Y, Z, k) ? 1u : 0u;
     }
     fe_store(xout, L, lane, X);
     fe_store(yout, L, lane, Y);

@@ -90,7 +90,7 @@ def giant_scan_cuda(X, Y, Z, cx_int: int, cy_int: int, steps: int):
             dg.data_ptr(), L, steps, consts.ctypes.data,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "kh_giant_scan")
-    _build.count_launch("giant_scan", L)
+    _build.count_launch("giant_scan", (L, steps))
     return (*outs, xs, zs, dg)
 
 

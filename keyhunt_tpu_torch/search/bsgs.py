@@ -13,13 +13,16 @@ Not in this slice (each raises a clear error): ggsb passes with more than
 one block, `table_partitions` (the ranged probe), `--dtable`, and more
 than one device.
 
-Three behaviours differ from keyhunt_tpu on purpose (its reference
+Four behaviours differ from keyhunt_tpu on purpose (its reference
 defects, recorded in ROADMAP.md):
 - `run()` returns when the drain after a dropout break finds every
   target (keyhunt_tpu raises TypeError there);
 - `probe_chunks_for` returns a count that divides the query count;
 - `_resize_lanes` sizes the new lanes from the span left after the
-  resume point, not from the whole range.
+  resume point, not from the whole range;
+- a block whose hits overflow the top-k slots (or fill a step's
+  degenerate-lane slots) is re-run with wider slots (`_rerun`), where
+  keyhunt_tpu drops the hits past its max_hits.
 """
 
 from __future__ import annotations
@@ -44,7 +47,10 @@ from ..ops import curve, field, jacwalk, match, u256
 from ..trace import span
 
 #: degenerate-lane report slots per step (lanes whose point x-equals the
-#: advance point -- each IS a solved key, resolved analytically on host)
+#: advance point -- each IS a solved key, resolved analytically on host).
+#: A step flags at most one lane per target (a target's flagged centres
+#: lie 2B strides apart), so more than 4 targets can fill a row; the engine
+#: then re-runs the block with a slot for every lane.
 DEGEN_SLOTS = 4
 
 
@@ -395,7 +401,7 @@ def probe_chunks_for(queries: int, maxlen: int,
 
 
 def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
-                       probe_chunks: int = 1):
+                       probe_chunks: int = 1, degen_slots: int = DEGEN_SLOTS):
     """The giant step over T*B Jacobian lanes (whole-table path):
     run(X, Y, Z, slab) -> (X', Y', Z', payload).
 
@@ -403,9 +409,9 @@ def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
     norm) gives canonical affine X for all S*L queries; the packed probe
     runs in `probe_chunks` slices; hits and degenerate lanes are extracted
     on the device with no host sync. payload is one int64 vector,
-    [lanes(K) | jsel(K) | count(1) | flags(S*DEGEN_SLOTS)]: flat query
-    indices of the first K hits, their padded slab positions, the hit
-    count, and per step the first DEGEN_SLOTS flagged lanes (-1 pad).
+    [lanes(K) | jsel(K) | count(1) | flags(S*D)]: flat query indices of
+    the first K hits, their padded slab positions, the hit count, and per
+    step the first D = `degen_slots` flagged lanes (-1 pad).
     Each stage runs inside a `trace.span` named "bsgs.<stage>"."""
     B, S, K = cfg.lanes, cfg.steps, cfg.max_hits
     negadv = ecc.ec_neg(ecc.ec_mul(B * cfg.stride))
@@ -424,7 +430,7 @@ def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
                 hits.append(h)
                 poss.append(p)
         with span("bsgs.topk"):
-            flags = match.first_set(dg, DEGEN_SLOTS)
+            flags = match.first_set(dg, degen_slots)
             lanes, jsel, count = match.topk_with_payload(
                 torch.cat(hits), torch.cat(poss), K)
             payload = torch.cat([lanes, jsel, count, flags.reshape(-1)])
@@ -524,9 +530,9 @@ class BsgsEngine:
         self._slab, _, shift = self.tbl.device_packed(self.device)
         self._pos_to_j = self.tbl.pos_to_j
         q = self.cfg.steps * len(self.targets) * self.cfg.lanes
-        self.step_fn = make_giant_step_fn(
-            self.cfg, shift,
-            probe_chunks=probe_chunks_for(q, int(self._slab.shape[1])))
+        self._step_args = (shift, probe_chunks_for(q, int(self._slab.shape[1])))
+        self.step_fn = make_giant_step_fn(self.cfg, *self._step_args)
+        self._wide_fns = {}     # (K, D) -> step fn of a block re-run
 
     def _dispatch(self, state):
         Xo, Yo, Zo, payload = self.step_fn(*state, self._slab)
@@ -548,12 +554,29 @@ class BsgsEngine:
         if ev is not None:
             ev.synchronize()
         arr = host.numpy()
-        K, S = self.cfg.max_hits, self.cfg.steps
-        lanes = arr[:K]
-        jsel = arr[K:2 * K]
-        counts = arr[2 * K:2 * K + 1]
-        flags = arr[2 * K + 1:].reshape(S, DEGEN_SLOTS)
-        self._decode(c0, lanes, jsel, counts, flags)
+        K = self.cfg.max_hits
+        nhits, full = self._decode(c0, arr, K, DEGEN_SLOTS)
+        if nhits > K or full:
+            self._rerun(c0, nhits, full)
+
+    def _rerun(self, c0: int, nhits: int, flags_full: bool):
+        """Block c0 again, from freshly seeded lanes (the pipeline's state
+        has moved on), through a step fn whose top-k holds all `nhits` hits
+        (K rounded up to a power of two) and, when a step's degenerate-lane
+        row was full, a flag slot for every lane; every hit is decoded.
+        `_record` drops the keys the first pass already recorded."""
+        K = max(self.cfg.max_hits, 1 << (nhits - 1).bit_length())
+        D = len(self.targets) * self.cfg.lanes if flags_full else DEGEN_SLOTS
+        print(f"[+] BSGS hit buffer saturated at c0={c0:#x} ({nhits} hits, "
+              f"{self.cfg.max_hits} slots"
+              f"{', a full degenerate-lane row' if flags_full else ''}): "
+              f"block re-run with {K} hit slots", flush=True)
+        if (K, D) not in self._wide_fns:
+            self._wide_fns[K, D] = make_giant_step_fn(
+                dataclasses.replace(self.cfg, max_hits=K), *self._step_args,
+                degen_slots=D)
+        payload = self._wide_fns[K, D](*self._seed(c0), self._slab)[3]
+        self._decode(c0, payload.cpu().numpy(), K, D)
 
     def _lane_offsets(self):
         """l * (2m) * G for l < lanes (Python seeding path only)."""
@@ -723,16 +746,18 @@ class BsgsEngine:
         for e in inflight:
             self._drain(*e)
 
-    def _decode(self, c0: int, lanes, jsel, counts, flags):
+    def _decode(self, c0: int, arr: np.ndarray, K: int, D: int):
+        """Record the keys of a fetched payload with K hit slots and D flag
+        slots per step; returns (hit count, whether a step's flag row is
+        full), which tell `_drain` whether slots overflowed."""
         cfg = self.cfg
         B = cfg.lanes
         Lg = len(self.targets) * B            # query-space width per step
-        nhits = int(counts[0])
+        lanes, jsel = arr[:K], arr[K:2 * K]
+        nhits = int(arr[2 * K])
+        flags = arr[2 * K + 1:].reshape(cfg.steps, D)
         if nhits > 0:
-            if nhits >= cfg.max_hits:
-                print(f"[W] BSGS hit buffer saturated at c0={c0:#x}; "
-                      f"increase max_hits", flush=True)
-            for k in range(cfg.max_hits):
+            for k in range(K):
                 g = int(lanes[k])
                 if g < 0:
                     continue
@@ -755,6 +780,7 @@ class BsgsEngine:
                 c = c0 + (lane + s * B) * cfg.stride
                 self._record(t, c + B * cfg.stride)
                 self._record(t, c - B * cfg.stride)
+        return nhits, bool((flags[:, -1] >= 0).any())
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,14 @@ the device does the O(keys) EC + hash + probe work; the host re-derives
 each rare candidate with the port's Python oracle (`ref`) before reporting
 it. Keys below the walker's pivot floor and above its keyspace-top cap are
 covered on the host (the port's `native` batch, or `ref` without a
-compiler). More than one device is not ported yet.
+compiler). A dispatch with more hits in an inner step than the top-k
+slots is re-run with wider slots, where keyhunt_tpu drops the hits past
+its max_hits. More than one device is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random as _random
 import time
 
@@ -67,10 +70,11 @@ class Engine:
         self.stop_after = stop_after if stop_after is not None else targets.count
         if targets.t0 is None:            # vanity: range compare, no table
             targets.t0, targets.t1 = match.build_table([])
-        slab0, slab1, shift = targets.bucket_slabs()
+        slab0, slab1, self._shift = targets.bucket_slabs()
         self._slab0 = to_device(slab0, self.device)
         self._slab1 = to_device(slab1, self.device)
-        self.step_fn = make_step_fn(cfg, shift, self.device)
+        self.step_fn = make_step_fn(cfg, self._shift, self.device)
+        self._wide_fns = {}         # K -> step fn of a dispatch re-run
         self.found_keys: set[int] = set()
         # distinct targets matched (an xpoint target matches both k and N-k)
         self.found_targets: set = set()
@@ -270,10 +274,32 @@ class Engine:
         host, ev = fetched
         if ev is not None:
             ev.synchronize()
-        packed = host.numpy()
+        most = self._decode(k0, host.numpy())
+        if most > self.cfg.max_hits:
+            self._rerun(k0, most)
+
+    def _rerun(self, k0: int, most: int):
+        """Dispatch k0 again from freshly seeded pivots (the pipeline's
+        state has moved on), through a step fn whose top-k holds `most`
+        hits per inner step (rounded up to a power of two), and decode
+        every hit; `_verify_and_record` drops keys already recorded."""
+        K = 1 << (most - 1).bit_length()
+        print(f"[+] hit buffer saturated at k0={k0:#x} ({most} hits in an "
+              f"inner step, {self.cfg.max_hits} slots): dispatch re-run with "
+              f"{K} hit slots", flush=True)
+        if K not in self._wide_fns:
+            self._wide_fns[K] = make_step_fn(
+                dataclasses.replace(self.cfg, max_hits=K), self._shift,
+                self.device)
+        packed = self._wide_fns[K](*self._seed(k0), self._slab0, self._slab1)[2]
+        self._decode(k0, packed.cpu().numpy())
+
+    def _decode(self, k0: int, packed: np.ndarray) -> int:
+        """Verify and record the hits of a fetched (S, K+1) dispatch result;
+        returns the largest hit count of its inner steps."""
         hits, counts = packed[:, :-1], packed[:, -1]
         if counts.sum() == 0:
-            return
+            return 0
         for row in range(hits.shape[0]):
             for f in hits[row]:
                 if f < 0:
@@ -288,9 +314,7 @@ class Engine:
                         # lambda^e * (walk key), up to sign
                         key = key * pow(ecc.LAMBDA, e, ecc.N) % ecc.N
                     self._verify_and_record(key)
-        if int(counts.max()) >= self.cfg.max_hits:
-            print(f"[W] hit buffer saturated at k0={k0:#x}; "
-                  f"increase max_hits", flush=True)
+        return int(counts.max())
 
     def run(self, max_seconds: float | None = None, max_keys: int | None = None):
         cfg = self.cfg

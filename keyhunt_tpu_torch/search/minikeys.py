@@ -16,7 +16,8 @@ Two phases per block, on one device:
     the 22-byte messages -> scalar limbs -> Jacobian double-and-add k*G
     (kernels K1, K2 on CUDA) -> affine (K3) -> uncompressed hash160 (K6)
     -> two-word bucket probe -> top-k. Hits are verified on the host with
-    the port's `ref` oracles.
+    the port's `ref` oracles; a solve with more hits than its top-k slots
+    has all its distinct lanes verified there (keyhunt_tpu drops the rest).
 
 Each stage runs inside a `trace.span` named "minikeys.<stage>", so a
 profiler trace of a filter and a solve gives their breakdown.
@@ -201,7 +202,16 @@ class MinikeysEngine:
                            self.cfg.max_hits)
         packed = torch.cat([idx, count.reshape(1)]).cpu().numpy()
         self.solves += 1
-        if packed[-1] > 0:
+        if packed[-1] > self.cfg.max_hits:
+            # hits past the top-k slots: verify the block's distinct lanes
+            # on the host (the drain's padded copies count as hits too)
+            rows = np.unique(block, axis=0)
+            print(f"\n[+] minikeys hit buffer saturated ({packed[-1]} hits, "
+                  f"{self.cfg.max_hits} slots): the solve's {len(rows)} "
+                  f"distinct lanes verified on the host", flush=True)
+            for row in rows:
+                self._verify(row.tobytes())
+        elif packed[-1] > 0:
             for i in packed[:-1]:
                 if i >= 0:
                     self._verify(block[int(i)].tobytes())

@@ -2,11 +2,11 @@
 
 Runs ``csrc/field_latency.cu``: one thread times a dependent chain of each
 piece of ``csrc/field.cuh`` with clock64() and reports SM cycles per call
--- the row product `fe_mul` (K1), the column-sum product `fe_mul_lat`
-(K3), `fe_sqr` (K2), the safegcd inversion `fe_inv_var` (K3's root), the
-Fermat chain `fe_inv`, one batch of 30 divsteps and one (d, e) update. The
+-- the carry-chain product `fe_mul` (K1, K3, K4), the square `fe_sqr`
+(K2, K3, K4), the safegcd inversion `fe_inv_var` (K3's root), the Fermat
+chain `fe_inv`, one batch of 30 divsteps and one (d, e) update. The
 kernel runs `reps` times and the last run is kept (the first also loads
-the instruction cache). Both products' chains must agree.
+the instruction cache). The two inversions must agree.
 
     python -m keyhunt_tpu_torch.tools.field_latency
 """

@@ -18,8 +18,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -34,25 +32,11 @@ GEOMETRY = ("128x4", "128x8", "256x2", "256x4", "256x8", "256x16", "512x4", "512
 
 def build(geometries: list[tuple[int, int]]) -> dict[tuple[int, int], ctypes.CDLL]:
     """One library per (T, G), built in parallel under the build root."""
-    outdir = os.path.join(_build.BUILD_ROOT, "sweep_batch_inv", _build._source_hash())
-    os.makedirs(outdir, exist_ok=True)
-    procs = {}
-    for T, G in geometries:
-        so = os.path.join(outdir, f"libfield_kernels_{T}x{G}.so")
-        cmd = _build.nvcc_command("field_kernels.cu", so, f"-DKH_BINV_THREADS={T}",
-                                  f"-DKH_BINV_GROUP={G}")
-        procs[T, G] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for key, (proc, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for T x G = {key}:\n{out}")
-        lib = ctypes.CDLL(so)
-        lib.kh_batch_inv.argtypes = _build._SIGNATURES["kh_batch_inv"]
-        lib.kh_batch_inv.restype = ctypes.c_int
-        libs[key] = lib
-    return libs
+    built = _build.build_variants(
+        "field_kernels.cu", "sweep_batch_inv",
+        {f"{T}x{G}": ((f"-DKH_BINV_THREADS={T}", f"-DKH_BINV_GROUP={G}"), _build.CSRC)
+         for T, G in geometries})
+    return {(T, G): built[f"{T}x{G}"][0] for T, G in geometries}
 
 
 def device_ms(call, calls: int, filler: torch.Tensor) -> float:

@@ -188,6 +188,39 @@ def test_divergence_dropout_drain_finds_every_target(tmp_path):
     assert eng._resume_c0 is not None        # the break did happen
 
 
+def test_divergence_hits_past_top_k_are_found(tmp_path, monkeypatch, capsys):
+    """Intended divergence (ROADMAP §C): one dispatch of m = 1024 x 256
+    lanes x 16 steps covers this range and its 6 targets, and keyhunt_tpu
+    keeps the first max_hits = 4 hits of a dispatch: its CLI prints "4/6
+    keys found" on this input. The port re-runs the block with the top-k
+    widened to the hit count and records each key once."""
+    keys = [1000, 9000, 17000, 33000, 52000, 79000]
+    pub = tmp_path / "pub.txt"
+    pub.write_text("".join(ecc.compress(ecc.pubkey(k)).hex() + "\n" for k in keys))
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-m", "bsgs", "-f", str(pub), "-r", "1:13880", "-n",
+                     "0x100000", "-k", "1", "-q", "--device", "cpu"]) == 0
+    text = (tmp_path / "KEYFOUNDKEYFOUND.txt").read_text()
+    found = sorted(int(ln.split(":")[1], 16) for ln in text.splitlines()
+                   if ln.startswith("Private key"))
+    assert found == keys
+    out = capsys.readouterr().out
+    assert "block re-run with 8 hit slots" in out and "6/6 keys found" in out
+
+
+def test_divergence_full_degenerate_row_is_rerun(table, tmp_path, capsys):
+    """A step flags at most one degenerate lane per target, so 5 targets
+    can flag 5 lanes of one step, one more than the DEGEN_SLOTS = 4 that
+    keyhunt_tpu reads (its 5th key is lost when the range is one block).
+    Keys 257 + (l + 8)*512 sit at lane l + B of block 257 (B = 8 lanes,
+    stride 512): step 0 flags lanes 0-4. The port re-runs the block with a
+    slot for every lane."""
+    keys = [257 + (lane + 8) * 512 for lane in range(5)]
+    eng = _engine(table, keys, 1, 8000, tmp_path, lanes=8, steps=2)
+    assert sorted(eng.run().values()) == keys
+    assert "a full degenerate-lane row" in capsys.readouterr().out
+
+
 def test_divergence_probe_chunks_divide_queries():
     """Intended divergence: keyhunt_tpu may return a chunk count that does
     not divide a non-power-of-two query count; the port caps it at the

@@ -200,6 +200,29 @@ def test_divergence_minikeys_drain_records_once(tmp_path):
     assert text.count("Private key") == 1
 
 
+def test_divergence_minikeys_hits_past_top_k_are_found(tmp_path, capsys):
+    """One full solve of 16 lanes holds 12 target minikeys, past its 8 hit
+    slots; keyhunt_tpu records the first 8 (keyhunt_tpu/search/
+    minikeys.py:238-244). The port verifies the solve's lanes on the host
+    and records all 12, each once."""
+    base = 40_000_000
+    valid, v = [], base
+    while len(valid) < 16:
+        m, v = _find_valid_minikey(v)
+        valid.append(m)
+        v += 1
+    planted = valid[1:13]
+    sink = ResultSink(path=str(tmp_path / "mk.txt"), quiet=True)
+    cfg = MinikeysConfig(filter_batch=v - base, solve_lanes=16)
+    eng = MinikeysEngine(cfg, _targets(planted), base=minikey_from_int(base),
+                         sink=sink, quiet=True, device="cpu")
+    found = eng.run(max_candidates=1)
+    assert eng.solves == 1 and eng.padded == 0
+    assert sorted(found) == sorted((m, _key_of(m)) for m in planted)
+    assert (tmp_path / "mk.txt").read_text().count("Private key") == 12
+    assert "16 distinct lanes verified on the host" in capsys.readouterr().out
+
+
 def test_cli_finds_planted_minikey(tmp_path, monkeypatch, capsys):
     m, v = _find_valid_minikey(30_000_000)
     other, _ = _find_valid_minikey(v + 1)

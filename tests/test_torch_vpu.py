@@ -158,3 +158,32 @@ def test_count_sass_counts_each_kernel_to_its_last_exit():
             "LOP3.LUT": 1, "STG.E": 1},
         "_ZN12_GLOBAL__N_121vpu_rotate_mix_kernelEPKjPjl": {
             "SHF.L.W.U32.HI": 1, "EXIT": 1}}
+
+
+_LOOP_LISTING = """
+		Function : _ZN12_GLOBAL__N_117giant_scan_kernelEv
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/               @P0 EXIT ;
+        /*0020*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0030*/                   IMAD.WIDE.U32 R6, R2, R2, RZ ;
+        /*0040*/                   NOP ;
+        /*0050*/                   IADD3 R8, R6, 0x1, RZ ;
+        /*0060*/               @P1 BRA 0x50 ;
+        /*0070*/                   IMAD.WIDE.U32.X R6, R2, R8, R6, P0 ;
+        /*0080*/              @!P2 BRA 0x30 ;
+        /*0090*/                   STG.E desc[UR4][R4.64], R6 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0;
+		Function : _ZN12_GLOBAL__N_110flat_kernelEv
+        /*0000*/                   IADD3 R1, R1, R1, RZ ;
+        /*0010*/                   EXIT ;
+        /*0020*/                   BRA 0x20;
+"""
+
+
+def test_count_loop_sass_counts_the_outermost_loop_body():
+    loops = _build.count_loop_sass(_LOOP_LISTING)
+    assert loops == {
+        "_ZN12_GLOBAL__N_117giant_scan_kernelEv": {
+            "IMAD.WIDE.U32": 1, "IADD3": 1, "BRA": 2, "IMAD.WIDE.U32.X": 1},
+        "_ZN12_GLOBAL__N_110flat_kernelEv": {}}

@@ -107,6 +107,19 @@ def test_vanity(tmp_path, monkeypatch):
     assert all(_address(k).startswith(prefix) for k in found)
 
 
+def test_divergence_walker_hits_past_top_k_are_found(tmp_path, monkeypatch,
+                                                     capsys):
+    """Intended divergence (ROADMAP §C): the 12 keys 0x100003 + 7i lie in
+    one inner step, and keyhunt_tpu keeps its first max_hits = 8 hits, so
+    it finds 8 of them. The port re-runs the dispatch with the top-k
+    widened to the hit count, and records each key once."""
+    keys = [0x100003 + 7 * i for i in range(12)]
+    got = _run(tmp_path, monkeypatch, [_address(k) for k in keys],
+               ["-m", "address", "-r", "100000:104000"])
+    assert got == keys
+    assert "dispatch re-run with 16 hit slots" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,msg", [
     (["-m", "minikeys", "--devices", "2"], "not yet ported"),
     (["-m", "address", "--devices", "2", "-f", "x"], "not yet ported"),
