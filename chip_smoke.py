@@ -63,8 +63,19 @@ prints no result:
    timed apart), with ms per filter dispatch and per solve, and a profiler
    trace of one filter and one solve (device ms per `minikeys.*` stage,
    idle share);
+10. BSGS table regimes (run before phase 9), each through the CLI or the
+   daemon, each held to exactly its planted keys and to K1-K4 launched in
+   its own run: `--dtable -k 64` (m = 2^28 built on the card) over a 2^52
+   range against 4 keys, one on a stride centre, with the build's
+   seconds, resident GiB and overflow, false positives, `find_j` re-walks
+   and their seconds, ms per dispatch and giant points/s with the drains;
+   `--table-partitions 4` (peak device memory against the whole slab) and
+   `-B ggsb --bsgs-block-count 4` on phase 3's saved table and keys; the
+   daemon (`keyhunt_tpu_torch.server`) on that table in a thread: a
+   raw-line and an HTTP query answered with their keys, 404 for a key
+   outside the queried range, 400 for a malformed line;
 9. path shapes: every kernel of K1-K6 at every width the CLI runs of
-   phases 3, 5 and 7 launched it at (counted by the wrappers; K4 by lanes
+   phases 3, 5, 7 and 10 launched it at (counted by the wrappers; K4 by lanes
    x steps), exactly against its plain version, with its bound, the
    CUDA-event ms of one call and the device ms per call of 20 calls
    queued behind ~1 ms fillers that hide the host's issue, at that width
@@ -100,6 +111,8 @@ RUN_DIR = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20261016
 M_LOG2 = 26                     # -k 16 at the default -n 2^44
 RANGE_END = 1 << 48
+DT_LOG2 = 28                    # --dtable -k 64
+DT_RANGE_END = 1 << 52          # 16 dispatches of 4 x 32768 lanes x 16 steps
 
 KERNELS = {   # name -> (source, replaced TPU kernel)
     "field_mul": ("keyhunt_tpu_torch/csrc/field_kernels.cu",
@@ -701,10 +714,50 @@ def _cli_run(rundir: str, argv: list[str],
         with open(path) as fh:
             found = sorted(int(ln.split(":")[1], 16) for ln in fh
                            if ln.startswith("Private key (hex):"))
-    last = tee.kept.getvalue().strip().splitlines()
+    lines = tee.kept.getvalue().strip().splitlines()
     return {"argv": argv, "rc": rc, "seconds": seconds, "launches": launches,
             "launch_widths": widths, "found": found,
-            "last_line": last[-1] if last else ""}
+            "report": [ln for ln in lines if _REPORT.match(ln)],
+            "last_line": lines[-1] if lines else ""}
+
+
+# the BSGS CLI's summary lines (`run_bsgs_cli`, `dtable.build_device_table`)
+_REPORT = re.compile(r"\[\+\] (BSGS: \d+ dispatches|device table m=|"
+                     r"device table: \d+ find_j)")
+_REPORT_FIELDS = (
+    (r"built in ([\d.]+) s: ([\d.]+) GiB resident, slab (\d+) x (\d+), "
+     r"overflow (\d+)",
+     ("build_s", "resident_gib", "slab_rows", "maxlen", "overflow")),
+    (r"(\d+) dispatches, (\d+) giant points in ([\d.]+) s \(([\d.]+) ms per "
+     r"dispatch, ([\d.e+]+) giant points/s, drains included\); (\d+) probe "
+     r"hits, (\d+) false positives",
+     ("dispatches", "giant_points", "search_s", "ms_per_dispatch",
+      "giant_points_per_s", "probe_hits", "false_positives")),
+    (r"(\d+) find_j re-walks in ([\d.]+) s", ("find_j_calls", "find_j_s")),
+)
+
+
+def _report(run: dict) -> dict:
+    """The numbers of a BSGS CLI run's summary lines."""
+    out = {}
+    for pattern, names in _REPORT_FIELDS:
+        for line in run["report"]:
+            hit = re.search(pattern, line)
+            if hit:
+                out.update({n: float(v) if "." in v or "e" in v else int(v)
+                            for n, v in zip(names, hit.groups())})
+    return out
+
+
+def _held(name: str, run: dict, planted: list) -> None:
+    """A BSGS run must have found exactly its planted keys and launched
+    K1-K4 itself."""
+    if run["rc"] != 0 or run["found"] != sorted(planted):
+        raise AssertionError(f"{name}: rc {run['rc']}, found {run['found']}, "
+                             f"planted {sorted(planted)}")
+    missing = [k for k in BSGS_KERNELS if run["launches"].get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched in its run: {missing}")
 
 
 def phase_e2e():
@@ -720,11 +773,7 @@ def phase_e2e():
                              "-f", "pubkeys.txt", "-r", f"1:{RANGE_END:x}",
                              "-s", "30"])
     emit({"phase": "e2e", "path": "bsgs", **run, "planted": sorted(keys)})
-    if run["rc"] != 0 or run["found"] != sorted(keys):
-        raise AssertionError(f"e2e: found {run['found']}, planted {sorted(keys)}")
-    missing = [k for k in BSGS_KERNELS if run["launches"].get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"e2e: kernels never launched: {missing}")
+    _held("e2e", run, keys)
     return [run]
 
 
@@ -737,8 +786,9 @@ def _address(k: int, compressed: bool = True) -> str:
                                         else ecc.uncompress_bytes(pt)))
 
 
-def _walker_dir(name: str, lines: list[str]) -> str:
-    d = os.path.join(RUN_DIR, "walker", name)
+def _run_dir(name: str, lines: list[str]) -> str:
+    """A fresh run directory for a CLI run, with `lines` as targets.txt."""
+    d = os.path.join(RUN_DIR, "runs", name)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     with open(os.path.join(d, "targets.txt"), "w") as fh:
@@ -769,7 +819,7 @@ def phase_walker_e2e() -> dict:
         0, 256, size=(W_TARGETS - len(planted), 20), dtype=np.uint8)
     lines = [_address(k) for k in planted] + \
         [base58.p2pkh_address(r.tobytes()) for r in decoys]
-    rundir = _walker_dir("address", lines)
+    rundir = _run_dir("address", lines)
     runs = [("address", _cli_run(rundir, ["-m", "address", "-l", "compress",
                                           "-e", "-f", "targets.txt", "-r",
                                           f"{W_START:x}:{W_END:x}"] + geom),
@@ -787,11 +837,11 @@ def phase_walker_e2e() -> dict:
              ["-m", "xpoint"], k[2:4]),
             ("eth", ["0x" + eth_address(*p).hex() for p in pub[4:6]],
              ["-m", "eth"], k[4:6])):
-        rundir = _walker_dir(name, lines)
+        rundir = _run_dir(name, lines)
         runs.append((name, _cli_run(rundir, argv + ["-f", "targets.txt"] + short),
                      sorted(want)))
     prefix = _address(k[6])[:10]
-    rundir = _walker_dir("vanity", [])
+    rundir = _run_dir("vanity", [])
     vrun = _cli_run(rundir, ["-m", "vanity", "-v", prefix] + short,
                     found_file="VANITYKEYFOUND.txt")
     runs.append(("vanity", vrun, [k[6]]))
@@ -823,6 +873,7 @@ def phase_rate(device, smi):
     from keyhunt_tpu_torch.ops import u256
     from keyhunt_tpu_torch.ref import ecc
     from keyhunt_tpu_torch.search import bsgs
+    from keyhunt_tpu_torch.trace import profile_dispatches, steady
     m = 1 << M_LOG2
     tbl = bsgs.load_table(m, RUN_DIR)
     slab, _, shift = tbl.device_packed(device)
@@ -837,7 +888,7 @@ def phase_rate(device, smi):
     Z[0] = 1
     for _ in range(2):                                  # warm-up
         X, Y, Z, _ = step(X, Y, Z, slab)
-    n, secs = _steady(lambda: step(X, Y, Z, slab))
+    n, secs = steady(lambda: step(X, Y, Z, slab))
     points = n * T * B * S / secs
     out = {"phase": "rate", "card": smi, "dispatches": n, "seconds": secs,
            "lanes": T * B, "steps": S, "probe_chunks": chunks,
@@ -848,91 +899,6 @@ def phase_rate(device, smi):
     return out
 
 
-def _steady(fn, seconds: float = 10.0) -> tuple[int, float]:
-    """Calls fn() back to back for ~`seconds`, at most 3 dispatches in
-    flight (the engines' PIPELINE); returns (calls, seconds) with the
-    device synchronised before the clock is read."""
-    import torch
-    torch.cuda.synchronize()
-    pending, n = [], 0
-    t0 = time.time()
-    while time.time() - t0 < seconds:
-        fn()
-        e = torch.cuda.Event()
-        e.record()
-        pending.append(e)
-        if len(pending) > 3:
-            pending.pop(0).synchronize()
-        n += 1
-    torch.cuda.synchronize()
-    return n, time.time() - t0
-
-
-def profile_dispatches(fn, calls: int, prefix: str) -> dict:
-    """One torch.profiler trace (CPU and CUDA activity) of `calls` calls of
-    the real dispatch fn(). Each device event (kernel, copy, set) is tied
-    by its CUDA correlation id to the runtime call that issued it, and
-    belongs to the step's `trace.span` range named `prefix.*` that holds
-    that call on the host: this covers the hand-written kernels, which are
-    launched through ctypes rather than from a PyTorch operator. Per call:
-    each stage's device ms, the device ms outside every stage, the device
-    ms of the costliest kernels and the traced wall ms; and the device's
-    busy and idle shares of that wall time (the union of its event
-    intervals). The profiler slows the host's launches, so the idle share is
-    an upper bound for an untraced dispatch."""
-    import bisect
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    runtime, ranges, device = {}, [], []
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() == DeviceType.CPU:
-            if name.startswith(prefix + "."):
-                ranges.append((e.start_ns(), e.start_ns() + e.duration_ns(), name))
-            elif re.match(r"cu(da)?[A-Z]", name):       # cudaLaunchKernel etc.
-                runtime[e.correlation_id()] = e.start_ns()
-        elif e.device_type() == DeviceType.CUDA and not name.startswith(prefix + "."):
-            device.append((e.start_ns(), e.duration_ns(), name, e.correlation_id()))
-    ranges.sort()
-    starts = [r[0] for r in ranges]
-    stages, kernels, unattributed, intervals = {}, {}, 0.0, []
-    for start, dur, name, corr in device:
-        ms = dur / 1e6 / calls
-        kernels[name[:80]] = kernels.get(name[:80], 0.0) + ms
-        intervals.append((start, start + dur))
-        t = runtime.get(corr)
-        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
-        if i >= 0 and t <= ranges[i][1]:
-            stages[ranges[i][2]] = stages.get(ranges[i][2], 0.0) + ms
-        else:
-            unattributed += ms
-    busy_ns, end = 0, float("-inf")
-    for s, t in sorted(intervals):
-        if t > end:
-            busy_ns += t - max(s, end)
-            end = t
-    busy_ms = busy_ns / 1e6 / calls
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
-    return {"calls": calls, "device_events": len(device),
-            "wall_ms_per_call": wall_ms / calls,
-            "device_busy_ms_per_call": busy_ms,
-            "device_busy_share": busy_ms * calls / wall_ms,
-            "device_idle_share": 1 - busy_ms * calls / wall_ms,
-            "stage_device_ms_per_call": dict(sorted(stages.items(),
-                                                    key=lambda kv: -kv[1])),
-            "unattributed_device_ms_per_call": unattributed,
-            "top_kernel_device_ms_per_call": top}
-
-
 def phase_walker_rate(device, smi) -> dict:
     """Steady walker dispatches at 64 x 4096 x 16 against 2^20 unreachable
     hash160 targets, compressed with -e, then xpoint (the hash-free EC
@@ -940,6 +906,7 @@ def phase_walker_rate(device, smi) -> dict:
     from keyhunt_tpu_torch.device import to_device
     from keyhunt_tpu_torch.ops import match
     from keyhunt_tpu_torch.search import walker
+    from keyhunt_tpu_torch.trace import profile_dispatches, steady
     rng = np.random.default_rng(SEED + 10)
     words = rng.integers(0, 1 << 32, size=(1 << 20, 2), dtype=np.uint64)
     t0, t1 = match.build_table([tuple(w) for w in words.tolist()])
@@ -954,7 +921,7 @@ def phase_walker_rate(device, smi) -> dict:
         px, py = (to_device(a, device) for a in walker.seed_pivots(cfg, 1 << 50))
         for _ in range(2):                              # warm-up
             px, py, packed = step(px, py, slab0, slab1)
-        n, secs = _steady(lambda: step(px, py, slab0, slab1))
+        n, secs = steady(lambda: step(px, py, slab0, slab1))
         points = n * cfg.keys_per_call / secs
         out[label] = {"phase": "walker_rate", "mode": label, "card": smi,
                       "dispatches": n, "seconds": secs,
@@ -989,7 +956,7 @@ def phase_minikeys_e2e() -> dict:
                   for m in planted)
     decoys = np.random.default_rng(SEED + 11).integers(
         0, 256, size=(MK_DECOYS, 20), dtype=np.uint8)
-    rundir = _walker_dir("minikeys", [_address(k, compressed=False) for k in keys]
+    rundir = _run_dir("minikeys", [_address(k, compressed=False) for k in keys]
                          + [base58.p2pkh_address(r.tobytes()) for r in decoys])
     run = _cli_run(rundir, ["-m", "minikeys", "-f", "targets.txt", "-C",
                             mk.minikey_from_int(base), "--device", "cuda",
@@ -1023,6 +990,7 @@ def phase_minikeys_rate(device, smi, cfg=None) -> dict:
     from keyhunt_tpu_torch.io.targets import TargetSet
     from keyhunt_tpu_torch.ops import match
     from keyhunt_tpu_torch.search import minikeys as mk
+    from keyhunt_tpu_torch.trace import profile_dispatches
     words = np.random.default_rng(SEED + 12).integers(
         0, 1 << 32, size=(1 << 20, 2), dtype=np.uint64)
     t0, t1 = match.build_table([tuple(w) for w in words.tolist()])
@@ -1073,6 +1041,102 @@ def phase_minikeys_rate(device, smi, cfg=None) -> dict:
     out["trace_seconds"] = time.perf_counter() - t
     emit(out)
     return out
+
+
+def _planted_dtable_keys():
+    rng = random.Random(SEED + 14)
+    m = 1 << DT_LOG2
+    keys = [rng.randrange(1, DT_RANGE_END) for _ in range(3)]
+    keys.append(1 + m + 4321 * 2 * m)       # a stride centre of the first block
+    return keys
+
+
+def phase_bsgs_tables(device) -> list:
+    """BSGS's other table regimes through the CLI, each held to its planted
+    keys and to K1-K4 launched in its own run: (a) `--dtable -k 64`
+    (m = 2^28, built on the card) over a 2^52 range against 4 keys, one on
+    a stride centre, with the build's seconds, resident GiB and overflow,
+    the false positives and `find_j` re-walks, and ms per dispatch with
+    the drains; (b) `--table-partitions 4` and (c) `-B ggsb
+    --bsgs-block-count 4` on phase 3's saved m = 2^26 table and keys, (b)
+    with the peak device memory against the whole slab's bytes; (d) the
+    daemon on that table in a thread: a raw-line and an HTTP query for
+    planted keys, each answered with its key, a query outside the key's
+    range (404) and a malformed line (400). Returns the runs."""
+    import socket
+    import torch
+    from keyhunt_tpu_torch import _build
+    from keyhunt_tpu_torch.client import BsgsdClient
+    from keyhunt_tpu_torch.ref import ecc
+    from keyhunt_tpu_torch.search import bsgs
+    from keyhunt_tpu_torch.server import BsgsdServer
+    def pubkeys(keys):
+        return ["04%064x%064x" % ecc.pubkey(k) for k in keys]
+
+    runs = []
+    keys = _planted_dtable_keys()
+    torch.cuda.reset_peak_memory_stats(device)
+    run = _cli_run(_run_dir("dtable", pubkeys(keys)),
+                   ["-m", "bsgs", "--dtable", "--device", "cuda", "-k", "64",
+                    "-f", "targets.txt", "-r", f"1:{DT_RANGE_END:x}", "-s", "30"])
+    rep = _report(run)
+    emit({"phase": "bsgs_tables", "path": "dtable", **run, **rep,
+          "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+          "planted": sorted(keys)})
+    _held("--dtable", run, keys)
+    if "build_s" not in rep or "find_j_calls" not in rep:
+        raise AssertionError(f"--dtable: no build or find_j report: {run['report']}")
+    runs.append(run)
+
+    m, keys = 1 << M_LOG2, _planted_keys()
+    table = os.path.join(RUN_DIR, os.path.basename(bsgs.table_path(m)))
+    slab_bytes = bsgs.load_table(m, RUN_DIR).packed()[0].nbytes
+    for name, extra in (("partitions", ["--table-partitions", "4"]),
+                        ("ggsb", ["-B", "ggsb", "--bsgs-block-count", "4"])):
+        torch.cuda.reset_peak_memory_stats(device)
+        run = _cli_run(_run_dir(name, pubkeys(keys)),
+                       ["-m", "bsgs", "--device", "cuda", "-k", "16",
+                        "--load-ptable", "--ptable", table, "-f", "targets.txt",
+                        "-r", f"1:{RANGE_END:x}", "-s", "30"] + extra)
+        emit({"phase": "bsgs_tables", "path": name, **run, **_report(run),
+              "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+              "whole_slab_gib": slab_bytes / 2**30, "planted": sorted(keys)})
+        _held(name, run, keys)
+        runs.append(run)
+
+    ddir = _run_dir("daemon", [])
+    srv = BsgsdServer(bsgs.load_table(m, RUN_DIR), port=0, device=device,
+                      result_path=os.path.join(ddir, "KEYFOUNDKEYFOUND.txt"))
+    pub = [ecc.compress(ecc.pubkey(k)).hex() for k in keys]
+    _build.reset_launches()
+    t0 = time.time()
+    srv.start()
+    try:
+        raw = BsgsdClient("127.0.0.1", srv.port, timeout=600)
+        http = BsgsdClient("127.0.0.1", srv.port, timeout=600, http=True)
+        answers = {"raw": raw.query(pub[0], 1, RANGE_END),
+                   "http": http.query(pub[1], 1, RANGE_END),
+                   "outside": raw.query(pub[2], RANGE_END + 1, RANGE_END + (1 << 40))}
+        with socket.create_connection(("127.0.0.1", srv.port), timeout=60) as s:
+            s.sendall(b"not a query\n")
+            answers["malformed"] = s.recv(4096).decode().strip()
+    finally:
+        srv.stop()
+    run = {"argv": ["keyhunt_tpu_torch.server", "--device", "cuda"], "rc": 0,
+           "seconds": time.time() - t0, "launches": dict(_build.LAUNCHES),
+           "launch_widths": sorted([k, n, c] for (k, n), c
+                                   in _build.LAUNCH_WIDTHS.items()),
+           "answers": answers}
+    emit({"phase": "bsgs_tables", "path": "daemon", **run})
+    want = {"raw": f"{keys[0]:064x}", "http": f"{keys[1]:064x}",
+            "outside": None, "malformed": "400 Bad Request"}
+    if answers != want:
+        raise AssertionError(f"daemon: answers {answers}, want {want}")
+    missing = [k for k in BSGS_KERNELS if run["launches"].get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"daemon: kernels never launched: {missing}")
+    runs.append(run)
+    return runs
 
 
 def _path_shape_kernels(rng, device) -> dict:
@@ -1202,6 +1266,7 @@ def main() -> int:
     phase_walker_rate(device, smi)
     runs["minikeys"] = phase_minikeys_e2e()
     phase_minikeys_rate(device, smi)
+    runs["bsgs_tables"] = phase_bsgs_tables(device)
     launches = phase_path_shapes(device, runs, stats)
     leaked = sorted(n for n in sys.modules
                     if n == "jax" or n.startswith("jax.")

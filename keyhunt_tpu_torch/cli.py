@@ -8,6 +8,9 @@ Every search mode runs on PyTorch: ``-m bsgs``, the walker modes address
 
     python -m keyhunt_tpu_torch.cli -m bsgs -f pubkeys.txt -r 1:80000 \\
         -n 0x100000 -k 1 --device cpu
+    python -m keyhunt_tpu_torch.cli -m bsgs -f pubkeys.txt --dtable -k 64
+    python -m keyhunt_tpu_torch.cli -m bsgs -f pubkeys.txt -S -k 16 \\
+        --table-partitions 4        # or: -B ggsb --bsgs-block-count 4
     python -m keyhunt_tpu_torch.cli -m address -f addresses.txt -e \\
         -r 100000000:1ffffffff
     python -m keyhunt_tpu_torch.cli -m minikeys -f addresses.txt \\
@@ -84,9 +87,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="BSGS giant lanes per target (0 = auto-size to the "
                         "range, up to 131072 lanes in total)")
     p.add_argument("--table-partitions", type=int, default=0,
-                   help="BSGS over-memory regime (not yet ported)")
+                   help="BSGS over-memory regime: sweep the range once per "
+                        "bucket partition of the table, one resident at a time")
     p.add_argument("--dtable", action="store_true",
-                   help="BSGS device-built table (not yet ported)")
+                   help="BSGS: build the baby table in device memory (no "
+                        "host arrays, no disk; not with -S or partitions)")
     p.add_argument("--rmd-batch-size", type=int, default=None,
                    help="accepted for parity")
     # reference mapped-bloom flag family (keyhunt.cpp:724-830), translated

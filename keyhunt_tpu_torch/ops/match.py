@@ -11,7 +11,9 @@ bits just below the bucket-index bits,
 with 0xFFFFFFFF sentinels padding each bucket row to maxlen; a query
 probes ONE slab row (its bucket, w0 >> shift) and compares residuals. A
 padded position is bucket*maxlen + slot; the host maps it back through
-the bucket prefix `starts` (search.bsgs.decode_packed_pos).
+the bucket prefix `starts` (search.bsgs.decode_packed_pos). The ranged
+probes serve a partition of the slab rows (BSGS `table_partitions`) and
+report global positions; the flat probe serves a flat slab.
 
 The probe and the top-k were plain jnp in the JAX package (no Pallas
 kernel), so they are plain PyTorch here, on every device. On device they
@@ -132,6 +134,47 @@ def probe_buckets_packed(slab: torch.Tensor, w0: torch.Tensor,
     hit = eq.any(dim=1)
     slot = torch.argmax(eq.to(torch.uint8), dim=1)     # first match
     return hit, bidx * maxlen + slot
+
+
+def probe_buckets_packed_flat(slab_flat: torch.Tensor, maxlen: int,
+                              w0: torch.Tensor, w1: torch.Tensor, shift: int):
+    """The packed probe against a flat (nb*maxlen,) slab. keyhunt_tpu
+    needed a windowed gather here to avoid XLA's 2-D scatter relayout; in
+    torch the flat slab is a (nb, maxlen) view of the same storage."""
+    return probe_buckets_packed(slab_flat.view(-1, maxlen), w0, w1, shift)
+
+
+def probe_buckets_packed_ranged(slab: torch.Tensor, w0: torch.Tensor,
+                                w1: torch.Tensor, shift: int, base: int):
+    """The packed probe against a PARTITION: slab holds the rows of global
+    buckets [base, base + per). Queries outside it miss; pos is GLOBAL
+    (global bucket * maxlen + slot), as over the whole slab."""
+    per, maxlen = slab.shape
+    gb = widen(w0) >> shift
+    lb = gb - base
+    mine = (lb >= 0) & (lb < per)
+    res = pack_residual(w0, w1, shift)
+    eq = (slab[lb.clamp(0, per - 1)] == res.unsqueeze(1)) & mine.unsqueeze(1)
+    hit = eq.any(dim=1)
+    slot = torch.argmax(eq.to(torch.uint8), dim=1)
+    return hit, gb * maxlen + slot
+
+
+def probe_buckets_ranged(slab0: torch.Tensor, slab1: torch.Tensor,
+                         w0: torch.Tensor, w1: torch.Tensor, shift: int,
+                         base: int):
+    """`probe_buckets` against a partition of two-word slabs holding the
+    rows of global buckets [base, base + per); pos is GLOBAL."""
+    per, maxlen = slab0.shape
+    gb = widen(w0) >> shift
+    lb = gb - base
+    mine = (lb >= 0) & (lb < per)
+    rows = lb.clamp(0, per - 1)
+    eq = ((slab0[rows] == w0.unsqueeze(1)) & (slab1[rows] == w1.unsqueeze(1))
+          & mine.unsqueeze(1))
+    hit = eq.any(dim=1)
+    slot = torch.argmax(eq.to(torch.uint8), dim=1)
+    return hit, gb * maxlen + slot
 
 
 def first_set(mask: torch.Tensor, k: int) -> torch.Tensor:

@@ -9,9 +9,12 @@ the slab, and extracts hits and degenerate lanes on the device; the host
 decodes and verifies each candidate exactly. Each giant point covers 2m
 keys, since X(jG) = X(-jG) (`keyhunt.cpp:2871-2874`).
 
-Not in this slice (each raises a clear error): ggsb passes with more than
-one block, `table_partitions` (the ranged probe), `--dtable`, and more
-than one device.
+The engine sweeps the range once per pass: one pass over the whole table;
+with ggsb, one per block of baby indices; with `table_partitions` P, one
+per bucket partition (a ranged probe, one partition resident at a time).
+The table is a host-built `BabyTable` or a device-built
+`search.dtable.DeviceTable` (`--dtable`). More than one device is not in
+the port yet (it raises a clear error).
 
 Four behaviours differ from keyhunt_tpu on purpose (its reference
 defects, recorded in ROADMAP.md):
@@ -366,7 +369,8 @@ class BsgsConfig:
     scheduler: str = "sequential"
     block_count: int = 0        # ggsb: number of baby-table blocks
     block_size: int = 0         # ggsb: babies per block
-    table_partitions: int = 0   # over-memory regime (not in this port yet)
+    # over-memory regime: P > 1 sweeps the range once per bucket partition
+    table_partitions: int = 0
 
     @property
     def stride(self) -> int:    # keys covered per giant point
@@ -387,6 +391,26 @@ class BsgsConfig:
         return max(count, 1), max(size, 1)
 
 
+def bucket_partitions(tbl: BabyTable, parts: int):
+    """Split the packed slab into `parts` value-contiguous partitions:
+    partition p holds global bucket rows [p*per, (p+1)*per), the last
+    padded with sentinel rows. Returns ([(slab_p, base_row)], starts,
+    shift); `starts` is the global bucket prefix the partitions share
+    (their probes report global padded positions)."""
+    slab, starts, shift = tbl.packed()
+    nb, maxlen = slab.shape
+    if nb % parts:
+        pad = parts - nb % parts
+        fill = np.full((pad, maxlen), 0xFFFFFFFF, np.uint32)
+        slab = np.concatenate([np.asarray(slab), fill])
+        starts = np.concatenate(
+            [starts, np.full(pad, starts[-1], starts.dtype)])
+        nb += pad
+    per = nb // parts
+    return [(slab[p * per:(p + 1) * per], p * per) for p in range(parts)], \
+        starts, shift
+
+
 def probe_chunks_for(queries: int, maxlen: int,
                      budget_bytes: int = 3 << 29) -> int:
     """Sequential probe chunks so the (queries x maxlen) row-gather temp
@@ -402,12 +426,15 @@ def probe_chunks_for(queries: int, maxlen: int,
 
 def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
                        probe_chunks: int = 1, degen_slots: int = DEGEN_SLOTS):
-    """The giant step over T*B Jacobian lanes (whole-table path):
-    run(X, Y, Z, slab) -> (X', Y', Z', payload).
+    """The giant step over T*B Jacobian lanes:
+    run(X, Y, Z, slab, base=None) -> (X', Y', Z', payload).
 
     K4 walks S steps and emits (X, Z) per step; `to_affine_x` (K3, K2, K1,
     norm) gives canonical affine X for all S*L queries; the packed probe
-    runs in `probe_chunks` slices; hits and degenerate lanes are extracted
+    runs in `probe_chunks` slices, against the whole slab, or with `base`
+    against a partition holding global bucket rows [base, base + rows)
+    (`match.probe_buckets_packed_ranged`, keyhunt_tpu's `run_ranged`;
+    positions stay global); hits and degenerate lanes are extracted
     on the device with no host sync. payload is one int64 vector,
     [lanes(K) | jsel(K) | count(1) | flags(S*D)]: flat query indices of
     the first K hits, their padded slab positions, the hit count, and per
@@ -416,7 +443,7 @@ def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
     B, S, K = cfg.lanes, cfg.steps, cfg.max_hits
     negadv = ecc.ec_neg(ecc.ec_mul(B * cfg.stride))
 
-    def run(X, Y, Z, slab):
+    def run(X, Y, Z, slab, base=None):
         with span("bsgs.giant_scan"):
             Xo, Yo, Zo, xs, zs, dg = jacwalk.giant_scan(
                 X, Y, Z, negadv[0], negadv[1], S)
@@ -426,7 +453,11 @@ def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
         hits, poss = [], []
         with span("bsgs.probe"):
             for a, b in zip(w0.chunk(probe_chunks), w1.chunk(probe_chunks)):
-                h, p = match.probe_buckets_packed(slab, a, b, shift)
+                if base is None:
+                    h, p = match.probe_buckets_packed(slab, a, b, shift)
+                else:
+                    h, p = match.probe_buckets_packed_ranged(slab, a, b,
+                                                             shift, base)
                 hits.append(h)
                 poss.append(p)
         with span("bsgs.topk"):
@@ -489,22 +520,23 @@ class BsgsEngine:
     """Host orchestration on one device: seeds lanes, dispatches giant
     batches (at most PIPELINE in flight), verifies candidates exactly,
     reconstructs keys (c +- j) and reports them. All T unfound targets
-    share one batch of T*B lanes; found targets drop out of it."""
+    share one batch of T*B lanes; found targets drop out of it. `tbl` is a
+    BabyTable or a device-built DeviceTable; the range is swept once per
+    pass (`_build_passes`). Counts what it did: `dispatches`,
+    `giant_points`, `probe_hits`, `false_hits` (probe hits that verified
+    no key) and `run_seconds` (the last `run()`'s wall time, drains
+    included)."""
 
     #: in-flight dispatches before the oldest payload is drained
     PIPELINE = 3
 
-    def __init__(self, cfg: BsgsConfig, tbl: BabyTable, targets: list,
+    def __init__(self, cfg: BsgsConfig, tbl, targets: list,
                  start: int, end: int, sink: ResultSink | None = None,
                  quiet: bool = False, rng_seed: int | None = None,
                  stats_every: float = 5.0, matrix: bool = False,
                  device: torch.device | str = "cuda"):
         if not end > start >= 1:
             raise ValueError(f"bad range {start:#x}:{end:#x}")
-        if cfg.table_partitions > 1:
-            raise _not_ported("--table-partitions (the ranged probe)")
-        if cfg.scheduler == "ggsb" and cfg.ggsb_blocks()[0] > 1:
-            raise _not_ported("ggsb with more than one block")
         self.cfg = cfg
         self.tbl = tbl
         self.device = resolve_device(device)     # raises without a GPU
@@ -522,20 +554,95 @@ class BsgsEngine:
         self._resume_c0: int | None = None
         self._offsets_cache: list | None = None
         self.rng = random.Random(rng_seed)
-        self._set_pass()
+        self.dispatches = self.giant_points = 0
+        self.probe_hits = self.false_hits = 0
+        self.run_seconds = 0.0
+        self._passes = self._build_passes()
+        self._set_pass(self._passes[0])
 
-    def _set_pass(self):
-        """Bind the device-resident slab (cached on the table) and build
-        the step function for the current geometry."""
-        self._slab, _, shift = self.tbl.device_packed(self.device)
-        self._pos_to_j = self.tbl.pos_to_j
+    def _build_passes(self):
+        """The search passes, tagged ("tbl", table) or ("part", slab, base,
+        starts, shift). One pass over the whole table for every scheduler
+        except:
+        - ggsb with more than one block, which splits the BABY INDICES:
+          pass b probes a table of j in (b*size, (b+1)*size] only (the
+          reference's GGSB blocks, keyhunt.cpp:1477-1499), each padded
+          with sentinels to one shape;
+        - table_partitions P > 1, which splits the BUCKET SLAB into P
+          value-contiguous partitions (`bucket_partitions`): each pass
+          sweeps the range against one resident partition.
+        Both need a host table (a DeviceTable has no host index)."""
+        tbl, cfg = self.tbl, self.cfg
+        if cfg.table_partitions > 1:
+            if cfg.scheduler == "ggsb":
+                raise ValueError("table_partitions and the ggsb scheduler "
+                                 "are both pass machineries; pick one")
+            if tbl.perm is None:
+                raise ValueError("table partitions need the host baby table "
+                                 "(--dtable has no host index)")
+            parts, starts, shift = bucket_partitions(tbl, cfg.table_partitions)
+            return [("part", slab, base, starts, shift) for slab, base in parts]
+        if cfg.scheduler != "ggsb":
+            return [("tbl", tbl)]
+        if tbl.perm is None:
+            raise ValueError("ggsb needs the host baby table "
+                             "(--dtable has no host index)")
+        count, size = cfg.ggsb_blocks()
+        if count <= 1:
+            return [("tbl", tbl)]
+        pad_n = 1 << (size - 1).bit_length()
+        passes = []
+        for b in range(count):
+            lo, hi = b * size, min((b + 1) * size, tbl.m)
+            sel = (tbl.perm >= lo) & (tbl.perm < hi)      # sorted order kept
+            cols = [np.asarray(tbl.t0[sel]), np.asarray(tbl.t1[sel]),
+                    np.asarray(tbl.perm[sel])]
+            fill = pad_n - cols[0].shape[0]
+            if fill > 0:
+                cols = [np.concatenate([c, np.full(fill, v, np.uint32)])
+                        for c, v in zip(cols, (0xFFFFFFFF, 0xFFFFFFFF, 0))]
+            passes.append(("tbl", BabyTable(m=tbl.m, t0=cols[0], t1=cols[1],
+                                            perm=cols[2], depth=tbl.depth)))
+        return passes
+
+    def _set_pass(self, entry):
+        """Make pass `entry` current. The previous pass's slab is released
+        before this one is uploaded, so one partition (or ggsb block) is
+        resident at a time; the whole table's slab stays cached on the
+        table, so engines sharing it (the daemon's) upload it once. Binds
+        the pass's host decode `_pos_to_j` (padded slab position -> baby
+        index, None for a sentinel) and builds the step fn."""
+        self._pass = entry
+        self._slab = None
+        if entry[0] == "part":
+            _, slab, base, starts, shift = entry
+            self._slab = to_device(np.asarray(slab), self.device)
+            self._base = base
+            maxlen, perm = slab.shape[1], self.tbl.perm
+            self._pos_to_j = lambda pos: decode_packed_pos(pos, starts,
+                                                           maxlen, perm)
+        else:
+            sub = entry[1]
+            self._base = None
+            if sub is self.tbl:
+                self._slab, _, shift = sub.device_packed(self.device)
+            else:
+                slab, _, shift = sub.packed()
+                self._slab = to_device(np.asarray(slab), self.device)
+            self._pos_to_j = sub.pos_to_j
+        self._shift = shift
+        self._set_step()
+
+    def _set_step(self):
+        """The step fn for the current lanes and targets."""
         q = self.cfg.steps * len(self.targets) * self.cfg.lanes
-        self._step_args = (shift, probe_chunks_for(q, int(self._slab.shape[1])))
+        self._step_args = (self._shift,
+                           probe_chunks_for(q, int(self._slab.shape[1])))
         self.step_fn = make_giant_step_fn(self.cfg, *self._step_args)
         self._wide_fns = {}     # (K, D) -> step fn of a block re-run
 
     def _dispatch(self, state):
-        Xo, Yo, Zo, payload = self.step_fn(*state, self._slab)
+        Xo, Yo, Zo, payload = self.step_fn(*state, self._slab, self._base)
         return (Xo, Yo, Zo), payload
 
     def _fetch_async(self, payload: torch.Tensor):
@@ -555,8 +662,10 @@ class BsgsEngine:
             ev.synchronize()
         arr = host.numpy()
         K = self.cfg.max_hits
+        counts = self.probe_hits, self.false_hits
         nhits, full = self._decode(c0, arr, K, DEGEN_SLOTS)
         if nhits > K or full:
+            self.probe_hits, self.false_hits = counts   # the re-run counts all
             self._rerun(c0, nhits, full)
 
     def _rerun(self, c0: int, nhits: int, flags_full: bool):
@@ -575,7 +684,8 @@ class BsgsEngine:
             self._wide_fns[K, D] = make_giant_step_fn(
                 dataclasses.replace(self.cfg, max_hits=K), *self._step_args,
                 degen_slots=D)
-        payload = self._wide_fns[K, D](*self._seed(c0), self._slab)[3]
+        payload = self._wide_fns[K, D](*self._seed(c0), self._slab,
+                                       self._base)[3]
         self._decode(c0, payload.cpu().numpy(), K, D)
 
     def _lane_offsets(self):
@@ -599,18 +709,22 @@ class BsgsEngine:
         z[0] = 1
         return tuple(to_device(a, self.device) for a in (px, py, z))
 
-    def _record(self, t: int, key: int):
+    def _record(self, t: int, key: int) -> bool:
+        """Record `key` for target t unless it is already found; returns
+        whether the key's X is the target's (the candidate was a true
+        hit)."""
         key %= ecc.N
+        pt = ecc.pubkey(key)
+        if pt[0] != self.targets[t][0]:
+            return False
         orig = self._tmap[t]
-        if orig in self.found:
-            return
-        if ecc.pubkey(key)[0] != self.targets[t][0]:
-            return
-        # fix the sign: X matches both key and N-key
-        if ecc.pubkey(key) != self.targets[t]:
-            key = ecc.N - key
-        self.found[orig] = key
-        self.sink.record(key, "btc", compressed=True)
+        if orig not in self.found:
+            # fix the sign: X matches both key and N-key
+            if pt != self.targets[t]:
+                key = ecc.N - key
+            self.found[orig] = key
+            self.sink.record(key, "btc", compressed=True)
+        return True
 
     # scheduler: yields c0 for successive dispatch blocks ------------------
 
@@ -690,17 +804,28 @@ class BsgsEngine:
                   f"lanes -> {new_b}", flush=True)
 
     def run(self, max_seconds: float | None = None, max_keys: int | None = None):
-        start_c0 = None
-        while True:
-            self._resume_c0 = None
-            self._run_pass(max_seconds=max_seconds, max_keys=max_keys,
-                           start_c0=start_c0)
-            # the drain after a dropout break may have found every target
-            if self._resume_c0 is None or len(self.found) >= self._n_all:
+        t0 = time.time()
+        for entry in self._passes:
+            if entry is not self._pass:
+                self._set_pass(entry)
+            start_c0 = None
+            while True:
+                self._resume_c0 = None
+                self._run_pass(max_seconds=max_seconds, max_keys=max_keys,
+                               start_c0=start_c0)
+                # the drain after a dropout break may have found every target
+                if self._resume_c0 is None or len(self.found) >= self._n_all:
+                    break
+                start_c0 = self._resume_c0
+                self._drop_found_targets(start_c0)
+                self._set_step()
+            if (len(self.found) >= self._n_all
+                    or (max_seconds is not None
+                        and self.meter.elapsed > max_seconds)
+                    or (max_keys is not None
+                        and self.meter.total_keys >= max_keys)):
                 break
-            start_c0 = self._resume_c0
-            self._drop_found_targets(start_c0)
-            self._set_pass()
+        self.run_seconds = time.time() - t0
         if not self.quiet:
             print("\n" + self.meter.line(), flush=True)
         return self.found
@@ -731,7 +856,12 @@ class BsgsEngine:
             inflight.append((c0, self._fetch_async(payload)))
             if len(inflight) > self.PIPELINE:
                 self._drain(*inflight.pop(0))
-            self.meter.add(cfg.keys_per_call(len(self.targets)))
+            self.dispatches += 1
+            self.giant_points += len(self.targets) * cfg.lanes * cfg.steps
+            # a partition pass covers only m/P babies per giant point:
+            # count effective keys (the full rate shows after P sweeps)
+            self.meter.add(cfg.keys_per_call(len(self.targets))
+                           // max(cfg.table_partitions, 1))
             now = time.time()
             if not self.quiet and now - last_stats >= self.stats_every:
                 end = "\n" if self.matrix else ""
@@ -766,10 +896,10 @@ class BsgsEngine:
                 c = c0 + (lane + s * B) * cfg.stride
                 # jsel is the padded slab position (None: sentinel slot)
                 j = self._pos_to_j(int(jsel[k]))
-                if j is None:
-                    continue
-                self._record(t, c - j)
-                self._record(t, c + j)
+                self.probe_hits += 1
+                if j is None or not (self._record(t, c - j)
+                                     | self._record(t, c + j)):
+                    self.false_hits += 1
         # degenerate-lane flags: P == +-advance point, Q = (c +- B*stride)*G
         for s in range(flags.shape[0]):
             for g in flags[s]:
@@ -828,12 +958,8 @@ def run_bsgs_cli(args, device: torch.device) -> int:
         raise SystemExit("[E] Endomorphism doesn't work with BSGS")
     if parse_int(getattr(args, "stride", "1") or "1") != 1:
         raise SystemExit("[E] Stride doesn't work with BSGS")
-    if getattr(args, "dtable", False):
-        raise _not_ported("--dtable")
     if (args.devices or 1) > 1:
         raise _not_ported("--devices > 1 (multi-device search)")
-    if getattr(args, "table_partitions", 0) > 1:
-        raise _not_ported("--table-partitions (the ranged probe)")
     if not args.file:
         raise SystemExit("[E] -f FILE with public keys required")
     if not os.path.exists(args.file):
@@ -846,11 +972,21 @@ def run_bsgs_cli(args, device: torch.device) -> int:
           f"device {device}", flush=True)
     path = getattr(args, "ptable", None) or table_path(m, args.tmpdir)
     tbl = None
-    if args.save or getattr(args, "load_ptable", False):
+    if args.dtable:
+        # built in device memory: no disk, no upload (search.dtable)
+        if args.save or args.load_ptable:
+            raise SystemExit("[E] --dtable builds in device memory; "
+                             "-S/--load-ptable do not apply")
+        if args.table_partitions > 1:
+            raise SystemExit("[E] --dtable supports a single resident "
+                             "device for now")
+        from .dtable import build_device_table
+        tbl = build_device_table(m, progress=not args.quiet, device=device)
+    elif args.save or args.load_ptable:
         tbl = load_table(m, path=path, verify=not args.skip_checksum)
         if tbl is not None:
             print(f"[+] loaded baby table {path}", flush=True)
-        elif getattr(args, "load_ptable", False):
+        elif args.load_ptable:
             raise SystemExit(f"[E] --load-ptable: no table {path}")
     if tbl is None:
         tbl = build_baby_table(m, progress=not args.quiet, device=device)
@@ -875,10 +1011,22 @@ def run_bsgs_cli(args, device: torch.device) -> int:
                 raise SystemExit(f"[E] {e}")
     cfg = BsgsConfig(m=m, lanes=lanes, steps=steps, scheduler=scheduler,
                      block_count=args.bsgs_block_count,
-                     block_size=args.bsgs_block_size)
+                     block_size=args.bsgs_block_size,
+                     table_partitions=args.table_partitions)
     eng = BsgsEngine(cfg, tbl, pts, start, end, quiet=args.quiet,
                      stats_every=args.stats, matrix=args.matrix,
                      device=device)
     found = eng.run(max_seconds=args.max_seconds)
+    if not args.quiet:
+        secs = max(eng.run_seconds, 1e-9)
+        print(f"[+] BSGS: {eng.dispatches} dispatches, {eng.giant_points} "
+              f"giant points in {eng.run_seconds:.3f} s "
+              f"({1e3 * secs / max(eng.dispatches, 1):.3f} ms per dispatch, "
+              f"{eng.giant_points / secs:.4e} giant points/s, drains "
+              f"included); {eng.probe_hits} probe hits, {eng.false_hits} "
+              f"false positives", flush=True)
+        if args.dtable:
+            print(f"[+] device table: {tbl.find_j_calls} find_j re-walks in "
+                  f"{tbl.find_j_seconds:.3f} s", flush=True)
     print(f"[+] BSGS done: {len(found)}/{len(pts)} keys found", flush=True)
     return 0

@@ -134,14 +134,117 @@ def test_cli_cpu_finds_planted_keys(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["-m", "minikeys", "--devices", "2"],
-                                  ["-m", "bsgs", "--dtable"],
+                                  ["-m", "bsgs", "--dtable", "-S"],
                                   ["-m", "bsgs", "--devices", "2"],
-                                  ["-m", "bsgs", "--table-partitions", "2"]])
+                                  ["-m", "bsgs", "--dtable", "--table-partitions", "2"]])
 def test_cli_not_ported_paths_exit(tmp_path, argv):
+    """Multi-device paths are not ported; `--dtable` refuses -S and table
+    partitions, with keyhunt_tpu's messages."""
     pub = tmp_path / "pub.txt"
     pub.write_text("04%064x%064x\n" % ecc.pubkey(5))
-    with pytest.raises(SystemExit, match="not yet ported"):
+    want = ("not yet ported" if "--dtable" not in argv else
+            "-S/--load-ptable do not apply" if "-S" in argv else
+            "single resident device")
+    with pytest.raises(SystemExit, match=want):
         cli.main(argv + ["-f", str(pub), "-n", "0x100000", "--device", "cpu"])
+
+
+def _jax_engine(tbl, cfg_kw, keys, tmp_path):
+    jt = jb.BabyTable(m=tbl.m, t0=tbl.t0, t1=tbl.t1, perm=tbl.perm)
+    return jb.BsgsEngine(jb.BsgsConfig(m=tbl.m, lanes=4, steps=2, **cfg_kw), jt,
+                         [ecc.pubkey(k) for k in keys], 1, 16384, quiet=True,
+                         sink=ResultSink(path=str(tmp_path / "j.txt"), quiet=True))
+
+
+@pytest.mark.parametrize("cfg_kw", [{"table_partitions": 3}, {"table_partitions": 8},
+                                    {"scheduler": "ggsb", "block_count": 4},
+                                    {"scheduler": "ggsb", "block_size": 100}])
+def test_passes_match_jax(table, tmp_path, cfg_kw):
+    """The port's passes (bucket partitions, padded when the bucket count
+    does not divide; ggsb blocks of baby indices, sentinel-padded to one
+    shape) equal a JAX BsgsEngine's `_passes` on the same table."""
+    eng = _engine(table, [9000], 1, 16384, tmp_path, **cfg_kw)
+    jeng = _jax_engine(table, cfg_kw, [9000], tmp_path)
+    assert len(eng._passes) == len(jeng._passes) > 1
+    for got, want in zip(eng._passes, jeng._passes):
+        assert got[0] == want[0]
+        if got[0] == "part":
+            np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+            assert got[2] == want[2] and got[4] == want[4]
+            np.testing.assert_array_equal(got[3], want[3])
+        else:
+            for name, arr in zip(("t0", "t1", "perm"), want[1:]):
+                np.testing.assert_array_equal(getattr(got[1], name), arr)
+    parts, starts, shift = bsgs.bucket_partitions(table, 3)
+    jparts, jstarts, jshift = jb.bucket_partitions(jeng.tbl, 3)
+    assert shift == jshift and (starts == jstarts).all()
+    for (s, b), (js, jbase) in zip(parts, jparts):
+        np.testing.assert_array_equal(s, js)
+        assert b == jbase
+
+
+def test_ranged_giant_step_matches_jax(table):
+    """One dispatch against each of two bucket partitions (keyhunt_tpu's
+    `run_ranged`): the same payloads and states, and the partitions' hits
+    add up to the whole slab's."""
+    jt = jb.BabyTable(m=table.m, t0=table.t0, t1=table.t1, perm=table.perm)
+    cfg_j = jb.BsgsConfig(m=M, lanes=4, steps=2)
+    cfg = bsgs.BsgsConfig(m=M, lanes=4, steps=2)
+    targets = [ecc.pubkey(3000), ecc.pubkey(3329)]
+    px, py = bsgs.seed_lanes(cfg, targets, 1 + M)
+    z = np.zeros_like(px)
+    z[0] = 1
+    parts, _, shift = bsgs.bucket_partitions(table, 2)
+    jfn = jb.make_giant_step_fn(cfg_j, len(targets), shift, ranged=True)
+    fn = bsgs.make_giant_step_fn(cfg, shift)
+    K, counts = cfg.max_hits, []
+    for slab, base in parts:
+        jX, jY, jZ, jpay = jfn(jnp.asarray(px), jnp.asarray(py), jnp.asarray(z),
+                              jnp.asarray(slab), jnp.int32(base))
+        X, Y, Z, pay = fn(*(u256.to_torch(a) for a in (px, py, z)),
+                          u256.to_torch(np.asarray(slab)), base)
+        jpay = np.asarray(jpay)
+        want = np.concatenate([jpay[:K].view(np.int32).astype(np.int64),
+                               jpay[K:2 * K].astype(np.int64),
+                               jpay[2 * K:].view(np.int32).astype(np.int64)])
+        np.testing.assert_array_equal(pay.numpy(), want)
+        counts.append(int(pay[2 * K]))
+        for a, b in ((X, jX), (Y, jY), (Z, jZ)):
+            assert u256.to_ints(field.norm(a)) == \
+                [v % field.P_INT for v in u256.to_ints(np.asarray(b))]
+    whole = fn(*(u256.to_torch(a) for a in (px, py, z)),
+               table.device_packed(torch.device("cpu"))[0])[3]
+    assert sum(counts) == int(whole[2 * K]) >= 1
+
+
+@pytest.mark.parametrize("cfg_kw", [{"table_partitions": 2},
+                                    {"scheduler": "ggsb", "block_count": 4}])
+def test_engine_pass_regimes_find_planted_keys(table, tmp_path, cfg_kw):
+    """Every pass sweeps the range; a partition pass meters keys/P."""
+    keys = [5000, 12345, 777]
+    eng = _engine(table, keys, 1, 16384, tmp_path, **cfg_kw)
+    assert sorted(eng.run().values()) == sorted(keys)
+    one = _engine(table, [9000], 1, 16384, tmp_path, **cfg_kw)
+    assert list(one.run().values()) == [9000]
+    parts = cfg_kw.get("table_partitions", 1)
+    assert one.meter.total_keys == one.dispatches * one.cfg.keys_per_call(1) // parts
+
+
+@pytest.mark.parametrize("extra", [["--table-partitions", "2"],
+                                   ["-B", "ggsb", "--bsgs-block-count", "4"]])
+def test_cli_pass_regimes_find_planted_keys(tmp_path, monkeypatch, capsys, extra):
+    keys = [0x3a7e9, 0x5000, 1 + 1024 + 3 * 2048]      # the last on a centre
+    pub = tmp_path / "pub.txt"
+    pub.write_text("".join("04%064x%064x\n" % ecc.pubkey(k) for k in keys))
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-m", "bsgs", "-f", str(pub), "-r", "1:80000", "-n",
+                     "0x100000", "-k", "1", "--device", "cpu"] + extra) == 0
+    text = (tmp_path / "KEYFOUNDKEYFOUND.txt").read_text()
+    found = sorted(int(ln.split(":")[1], 16) for ln in text.splitlines()
+                   if ln.startswith("Private key"))
+    assert found == sorted(keys)
+    out = capsys.readouterr().out
+    assert "3/3 keys found" in out and "not yet ported" not in out
 
 
 @pytest.mark.parametrize("fmt", ["npz", "d"])
@@ -200,6 +303,30 @@ def test_divergence_hits_past_top_k_are_found(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert cli.main(["-m", "bsgs", "-f", str(pub), "-r", "1:13880", "-n",
                      "0x100000", "-k", "1", "-q", "--device", "cpu"]) == 0
+    text = (tmp_path / "KEYFOUNDKEYFOUND.txt").read_text()
+    found = sorted(int(ln.split(":")[1], 16) for ln in text.splitlines()
+                   if ln.startswith("Private key"))
+    assert found == keys
+    out = capsys.readouterr().out
+    assert "block re-run with 8 hit slots" in out and "6/6 keys found" in out
+
+
+@pytest.mark.parametrize("extra", [["--table-partitions", "2"],
+                                   ["-B", "ggsb", "--bsgs-block-count", "4"]])
+def test_divergence_hits_past_top_k_are_found_per_pass(tmp_path, monkeypatch,
+                                                       capsys, extra):
+    """The same divergence inside a partition pass and a ggsb pass: six
+    keys c_l + j_l, one per stride centre c_l of a 256-lane dispatch, whose
+    babies j_l <= 256 lie in ggsb block 0 of 4 and whose buckets (X top bit
+    0, 32 buckets) lie in partition 0 of 2, so one pass holds all six hits
+    against 4 slots; its block is re-run against that pass's slab."""
+    js = [j for j in range(1, 257) if ecc.pubkey(j)[0] >> 255 == 0][:6]
+    keys = [1 + 1024 + lane * 2048 + j for lane, j in enumerate(js)]
+    pub = tmp_path / "pub.txt"
+    pub.write_text("".join(ecc.compress(ecc.pubkey(k)).hex() + "\n" for k in keys))
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-m", "bsgs", "-f", str(pub), "-r", "1:13880", "-n",
+                     "0x100000", "-k", "1", "-q", "--device", "cpu"] + extra) == 0
     text = (tmp_path / "KEYFOUNDKEYFOUND.txt").read_text()
     found = sorted(int(ln.split(":")[1], 16) for ln in text.splitlines()
                    if ln.startswith("Private key"))

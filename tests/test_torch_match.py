@@ -56,6 +56,55 @@ def test_probe_matches_jax():
     assert hit[:300].all()
 
 
+def _queries(t0, t1, seed=3, n=300):
+    """n table entries and n random fragments."""
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, t0.shape[0], size=n)
+    return (np.concatenate([t0[pick], rng.integers(0, 1 << 32, n, dtype=np.uint32)]),
+            np.concatenate([t1[pick], rng.integers(0, 1 << 32, n, dtype=np.uint32)]))
+
+
+@pytest.mark.parametrize("base_row", [0, 40, 100])
+def test_ranged_probes_match_jax(base_row):
+    """A partition of up to 60 bucket rows from `base_row` (from 100 only
+    the slab's last 28): hits only for queries of its buckets, global
+    positions, in both the packed and the two-word probe."""
+    t0, t1 = _sorted_frags(8192)
+    slab, _, shift = match.build_buckets_packed(t0, t1, avg=64)
+    s0, s1, shift2 = match.build_buckets(t0, t1, avg=64)
+    assert shift2 == shift and slab.shape[0] == 128
+    part = slab[base_row:base_row + 60]
+    p0, p1 = s0[base_row:base_row + 60], s1[base_row:base_row + 60]
+    w0, w1 = _queries(t0, t1)
+    jh, jp = jax.jit(lambda s, a, b, c: jm.probe_buckets_packed_ranged(
+        s, a, b, shift, c))(part, w0, w1, jnp.int32(base_row))
+    hit, pos = match.probe_buckets_packed_ranged(_t(part), _t(w0), _t(w1), shift,
+                                                 base_row)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jp).astype(np.int64))
+    mine = ((w0 >> shift) >= base_row) & ((w0 >> shift) < base_row + 60)
+    assert (hit.numpy()[:300] == mine[:300]).all()
+    jh, jp = jax.jit(lambda a0, a1, a, b, c: jm.probe_buckets_ranged(
+        a0, a1, a, b, shift, c))(p0, p1, w0, w1, jnp.int32(base_row))
+    hit, pos = match.probe_buckets_ranged(_t(p0), _t(p1), _t(w0), _t(w1), shift,
+                                          base_row)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jp).astype(np.int64))
+
+
+def test_flat_probe_matches_jax():
+    t0, t1 = _sorted_frags(8192)
+    slab, _, shift = match.build_buckets_packed(t0, t1, avg=32)
+    flat, maxlen = slab.reshape(-1), slab.shape[1]
+    w0, w1 = _queries(t0, t1, seed=5)
+    jh, jp = jax.jit(lambda s, a, b: jm.probe_buckets_packed_flat(
+        s, maxlen, a, b, shift))(flat, w0, w1)
+    hit, pos = match.probe_buckets_packed_flat(_t(flat), maxlen, _t(w0), _t(w1), shift)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jp).astype(np.int64))
+    assert hit[:300].all()
+
+
 @pytest.mark.parametrize("nhits", [0, 1, 3, 9])
 def test_topk_with_payload_matches_jax(nhits):
     rng = np.random.default_rng(nhits)
