@@ -39,7 +39,7 @@ prints no result:
    device's busy and idle shares;
 5. walker end to end, through `keyhunt_tpu_torch.cli --device cuda` at the
    CLI's full width (64 pivots x 4096 offsets x 16 steps per dispatch):
-   `-m address -l compress -e` over 2^32 keys against 2^16 addresses (5
+   `-m address -l compress -e` over 2^31 keys against 2^16 addresses (5
    planted: three random keys, one on the last offset column of a
    dispatch, one at lambda*k found through beta*X), then `-m rmd160 -l
    both`, `-m xpoint`, `-m eth` and `-m vanity` over 2^26 keys each; each
@@ -74,8 +74,30 @@ prints no result:
    daemon (`keyhunt_tpu_torch.server`) on that table in a thread: a
    raw-line and an HTTP query answered with their keys, 404 for a key
    outside the queried range, 400 for a malformed line;
-9. path shapes: every kernel of K1-K6 at every width the CLI runs of
-   phases 3, 5, 7 and 10 launched it at (counted by the wrappers; K4 by lanes
+11. the mesh (run before phase 9) on the one card, as 4 explicit shards
+   of cuda:0: `BsgsEngine` over 4 shards x 4 targets x 8192 lanes x 16
+   steps on phase 3's table against its 4 keys (the same found set), then
+   composed with `--table-partitions 2`; the bsgsd daemon over the 4
+   shards (one upload of the table's shards timed, then two queries whose
+   engines must reuse the shards cached on the table); the sharded
+   walker (`Engine`,
+   -l compress -e, 64 x 4096 x 16 a shard) over 2^26 keys against 4
+   planted addresses; each run held to its keys and to K1-K4 (K1-K3 and
+   K5 for the walker) launched in it. Then `python -m
+   keyhunt_tpu_torch.tools.multiproc --device cuda`: two processes x 2
+   shards of the card over gloo, each finding the walker, BSGS and daemon
+   keys planted in the other's shards, the daemon answering a bad range
+   400 and serving on (and reporting whether gloo takes CUDA tensors as
+   they are). Last, the giant points/s of 4 shards beside
+   phase 4's one device, with a profiler trace of one sharded dispatch;
+12. the tools (run before phase 9): `python -m
+   keyhunt_tpu_torch.tools.bench --mode all --m 2^26 --seconds 3` on
+   phase 3's cached table, with no recorded error, each rate beside the
+   phase that measured the same path (4, 6, 8); and a speedcheck audit:
+   `tools.speedcheck.make_speed_targets` at half phase 4's keys/s for 10
+   s, searched by `-m bsgs`, which must find the key within 10 s of search;
+9. path shapes: every kernel of K1-K6 at every width the CLI and engine
+   runs of phases 3, 5, 7, 10, 11 and 12 launched it at (counted by the wrappers; K4 by lanes
    x steps), exactly against its plain version, with its bound, the
    CUDA-event ms of one call and the device ms per call of 20 calls
    queued behind ~1 ms fillers that hide the host's issue, at that width
@@ -138,7 +160,9 @@ KERNELS = {   # name -> (source, replaced TPU kernel)
 # walker geometry: the CLI's defaults, one dispatch = 2^22 keys
 WA, WW, WS = 64, 4096, 16
 W_SPAN = WA * WW * WS
-W_START, W_END = 1 << 32, (1 << 33) - 1      # -r 100000000:1ffffffff
+# 2^31 keys (512 dispatches; 2^32 took 240-430 s by host, too much of the
+# script's 1,200 s beside phases 11 and 12)
+W_START, W_END = 1 << 32, (1 << 32) + (1 << 31) - 1   # -r 100000000:17fffffff
 W_TARGETS = 1 << 16
 SHORT_START, SHORT_KEYS = 1 << 40, 1 << 26   # the other walker modes
 VPU_B = 1 << 22                               # T1: the JAX tool's default
@@ -798,7 +822,7 @@ def _run_dir(name: str, lines: list[str]) -> str:
 
 def phase_walker_e2e() -> dict:
     """The walker through the CLI: the main run (address, compressed, -e,
-    2^32 keys, 2^16 targets) and one short run of each other mode, each
+    2^31 keys, 2^16 targets) and one short run of each other mode, each
     held to its planted keys and to the kernels of its own path
     (`WALKER_RUN_KERNELS`). Returns the runs."""
     from keyhunt_tpu_torch.io import base58
@@ -1139,6 +1163,225 @@ def phase_bsgs_tables(device) -> list:
     return runs
 
 
+# the mesh (phase 11): D shards of cuda:0, each walking B lanes per target
+MESH_D = 4
+MESH_B = 8192                   # x 4 targets = 32768 lanes a shard
+MESH_W_KEYS = 1 << 26           # the sharded walker's range (host-bound)
+MESH_MP_M = 1 << 20             # the two-process run's table
+
+
+def _engine_run(name: str, make, planted: list, **run_kw) -> dict:
+    """Build an engine with `make()` and run it, with every launch count
+    set to 0 just before and read just after; the run must find exactly
+    `planted`. Returns the run in `_cli_run`'s shape."""
+    from keyhunt_tpu_torch import _build
+    _build.reset_launches()
+    t0 = time.time()
+    eng = make()
+    found = eng.run(**run_kw)
+    run = {"argv": [name], "rc": 0, "seconds": time.time() - t0,
+           "launches": dict(_build.LAUNCHES),
+           "launch_widths": sorted([k, n, c] for (k, n), c
+                                   in _build.LAUNCH_WIDTHS.items()),
+           "found": sorted(found.values() if isinstance(found, dict)
+                           else eng.found_keys)}
+    for attr in ("dispatches", "giant_points", "probe_hits", "false_hits",
+                 "run_seconds"):
+        if hasattr(eng, attr):
+            run[attr] = getattr(eng, attr)
+    if run["found"] != sorted(planted):
+        raise AssertionError(f"{name}: found {run['found']}, planted {sorted(planted)}")
+    return run
+
+
+def phase_mesh(device, smi, rate: dict) -> dict:
+    """The mesh on the one card, as MESH_D explicit shards of cuda:0:
+    `BsgsEngine` over 4 shards on phase 3's m = 2^26 table against its 4
+    keys (the same found set as phase 3), once whole and once composed with
+    2 table partitions; the daemon over the 4 shards (the shards' upload
+    seconds, then two queries on the cached shards); the sharded walker
+    (`Engine`, -l compress -e) over
+    4 shards of 64 x 4096 x 16 against planted addresses; each held to K1-K4
+    (K5 for the walker) launched in its own run. Then two processes x 2
+    shards over the card through gloo (`tools.multiproc`), each finding
+    the keys planted in the other's shards, and the giant points/s of
+    D = 4 shards beside phase 4's D = 1 with a profiler trace of one
+    dispatch. Returns the in-process runs."""
+    import torch
+    from keyhunt_tpu_torch.io.results import ResultSink
+    from keyhunt_tpu_torch.io.targets import load_hash160_file
+    from keyhunt_tpu_torch.ops import u256
+    from keyhunt_tpu_torch.parallel.bsgs_sharded import (_upload_shards,
+                                                         make_sharded_giant_step,
+                                                         resident_shards)
+    from keyhunt_tpu_torch.parallel.mesh import make_mesh
+    from keyhunt_tpu_torch.ref import ecc
+    from keyhunt_tpu_torch.search import bsgs
+    from keyhunt_tpu_torch.search.engine import Engine
+    from keyhunt_tpu_torch.search.walker import WalkerConfig
+    from keyhunt_tpu_torch.server import BsgsdServer
+    from keyhunt_tpu_torch.trace import profile_dispatches, steady
+    mesh = make_mesh(devices=[device] * MESH_D)
+    m, keys = 1 << M_LOG2, _planted_keys()
+    tbl = bsgs.load_table(m, RUN_DIR)
+    targets = [ecc.pubkey(k) for k in keys]
+    runs, out = [], {"phase": "mesh", "card": smi, "shards": MESH_D}
+    for name, parts in (("bsgs_mesh", 0), ("bsgs_mesh_partitions", 2)):
+        cfg = bsgs.BsgsConfig(m=m, lanes=MESH_B, steps=16, table_partitions=parts)
+        sink = ResultSink(path=os.path.join(_run_dir(name, []), "KEYFOUNDKEYFOUND.txt"),
+                          quiet=True)
+        run = _engine_run(name, lambda: bsgs.BsgsEngine(
+            cfg, tbl, targets, 1, RANGE_END, sink=sink, quiet=True,
+            device=device, devices=mesh), keys)
+        missing = [k for k in BSGS_KERNELS if run["launches"].get(k, 0) < 1]
+        emit({"phase": "mesh", "path": name, **run, "planted": sorted(keys)})
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: {missing}")
+        runs.append(run)
+
+    # the daemon over the mesh: the seconds of one upload of the whole
+    # table's shards, then two queries for phase 3's last key, whose
+    # engines bind the shards the runs above left cached on the table
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _upload_shards(tbl, mesh, 0, 1)
+    torch.cuda.synchronize()
+    upload = time.time() - t0
+    srv = BsgsdServer(tbl, port=0, lanes=MESH_B, steps=16, device=device,
+                      devices=mesh, result_path=os.devnull)
+    cached = resident_shards(tbl, mesh, cache=True)
+    query_s = []
+    for _ in range(2):
+        t0 = time.time()
+        got = srv.search(ecc.compress(targets[-1]).hex(), 1, RANGE_END)
+        query_s.append(time.time() - t0)
+        if got != keys[-1]:
+            raise AssertionError(f"daemon_mesh: got {got}, planted {keys[-1]}")
+    if resident_shards(tbl, mesh, cache=True) is not cached:
+        raise AssertionError("daemon_mesh: the table's shards were uploaded again")
+    out["daemon"] = {"shard_upload_seconds": upload, "query_seconds": query_s}
+    emit({"phase": "mesh", "path": "daemon_mesh", **out["daemon"]})
+
+    rng = random.Random(SEED + 20)
+    wcfg = WalkerConfig(pivots=WA, width=WW, steps=WS, mode="compressed", endo=True)
+    lo, hi = SHORT_START, SHORT_START + MESH_W_KEYS - 1
+    wkeys = sorted(rng.randrange(lo, hi + 1) for _ in range(MESH_D))
+    wdir = _run_dir("walker_mesh", [_address(k) for k in wkeys])
+    ts = load_hash160_file(os.path.join(wdir, "targets.txt"), is_address=True)
+    sink = ResultSink(path=os.path.join(wdir, "KEYFOUNDKEYFOUND.txt"), quiet=True)
+    run = _engine_run("walker_mesh", lambda: Engine(
+        wcfg, ts, lo, hi, sink=sink, quiet=True, device=device, devices=mesh),
+        wkeys)
+    missing = [k for k in WALKER_RUN_KERNELS["address"] if run["launches"].get(k, 0) < 1]
+    emit({"phase": "mesh", "path": "walker_mesh", **run, "planted": wkeys})
+    if missing:
+        raise AssertionError(f"walker_mesh: kernels never launched: {missing}")
+    runs.append(run)
+
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "keyhunt_tpu_torch.tools.multiproc", "--device",
+         "cuda", "--procs", "2", "--shards", "2", "--m", str(MESH_MP_M),
+         "--lanes", "1024", "--steps", "16", "--timeout", "300"],
+        cwd=ROOT, capture_output=True, text=True, timeout=360)
+    children = [json.loads(ln) for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
+    out["multiproc"] = {"rc": proc.returncode, "seconds": time.time() - t0,
+                        "children": children}
+    emit({"phase": "mesh", "path": "multiproc", **out["multiproc"]})
+    if proc.returncode != 0 or "PASS" not in proc.stdout or len(children) != 2:
+        raise AssertionError(f"multiproc: rc {proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+
+    # the rate: MESH_D shards x 4 targets x MESH_B lanes x 16 steps against
+    # phase 4's one device at 4 x 32768 x 16: the same global lanes
+    cfg = bsgs.BsgsConfig(m=m, lanes=MESH_B, steps=16)
+    step = make_sharded_giant_step(cfg, resident_shards(tbl, mesh, cache=True),
+                                   mesh, len(targets))
+    wide = bsgs.BsgsConfig(m=m, lanes=MESH_D * MESH_B, steps=16)
+    px, py = bsgs.seed_lanes(wide, targets, 1 + m)
+    T = len(targets)
+    state = [[u256.to_torch(np.ascontiguousarray(
+        a.reshape(8, T, MESH_D, MESH_B)[:, :, d].reshape(8, -1)), device)
+        for d in range(MESH_D)] for a in (px, py)]
+    Zs = [torch.zeros_like(x) for x in state[0]]
+    for z in Zs:
+        z[0] = 1
+    for _ in range(2):                                      # warm-up
+        step(state[0], state[1], Zs)
+    n, secs = steady(lambda: step(state[0], state[1], Zs), 5.0)
+    points = n * MESH_D * T * MESH_B * 16 / secs
+    out.update(dispatches=n, seconds=secs, lanes=MESH_D * T * MESH_B, steps=16,
+               ms_per_dispatch=1e3 * secs / n, giant_points_per_s=points,
+               keys_per_s=points * 2 * m,
+               one_device_giant_points_per_s=rate["giant_points_per_s"],
+               ratio_to_one_device=points / rate["giant_points_per_s"],
+               trace=profile_dispatches(lambda: step(state[0], state[1], Zs),
+                                        3, "bsgs"))
+    emit(out)
+    print(f"[mesh] D = {MESH_D} shards on one card: {points:.4e} giant points/s, "
+          f"D = 1 (phase 4): {rate['giant_points_per_s']:.4e} "
+          f"({out['ratio_to_one_device']:.3f}x)", flush=True)
+    return runs
+
+
+def phase_tools(smi, rate: dict, walker_rate: dict, minikeys_rate: dict) -> dict:
+    """The tools: `python -m keyhunt_tpu_torch.tools.bench --mode all` on
+    phase 3's cached m = 2^26 table, each rate beside the phase that
+    measured the same path (4, 6, 8), failing on any recorded error; then a
+    speedcheck audit: one target written by `make_speed_targets` at half
+    phase 4's keys/s for 10 s, searched by `-m bsgs` (one target, so the
+    whole 131072-lane dispatch walks it at phase 4's rate), which must find
+    it within its 10 scheduled seconds of search."""
+    from keyhunt_tpu_torch.search import bsgs
+    from keyhunt_tpu_torch.tools.speedcheck import make_speed_targets
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "keyhunt_tpu_torch.tools.bench", "--mode", "all",
+         "--m", str(1 << M_LOG2), "--seconds", "3", "--tmpdir", RUN_DIR],
+        cwd=ROOT, capture_output=True, text=True, timeout=400)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    bench = json.loads(lines[-1]) if lines else {}
+    errors = {k: v["error"] for k, v in bench.items()
+              if isinstance(v, dict) and "error" in v}
+    out = {"phase": "tools", "card": smi, "bench_rc": proc.returncode,
+           "bench_seconds": time.time() - t0, "bench": bench, "compare": {
+               "bsgs_keys_per_s": [bench.get("value"), rate["keys_per_s"]],
+               "compressed_endo_keys_per_s": [
+                   bench.get("secondary", {}).get("value"),
+                   walker_rate["compressed_endo"]["keys_per_s"]],
+               "xpoint_points_per_s": [
+                   bench.get("xpoint_ec_adds", {}).get("points_per_sec"),
+                   walker_rate["xpoint"]["points_per_s"]],
+               "minikeys_keys_per_s": [bench.get("minikeys", {}).get("value"),
+                                       minikeys_rate["candidates_per_s"]],
+               "vanity_endo_keys_per_s": [bench.get("vanity", {}).get("value"), None]}}
+    if proc.returncode != 0 or not bench or errors:
+        emit(out)
+        raise AssertionError(f"bench: rc {proc.returncode}, errors {errors}\n"
+                             f"{proc.stderr[-4000:]}")
+    for name, (got, phase) in out["compare"].items():
+        print(f"[tools] {name}: bench {got}, phase {phase}", flush=True)
+
+    start, seconds = 1 << 60, 10.0
+    speed = rate["keys_per_s"] / 2
+    [(key, pub)] = make_speed_targets(start, [speed], seconds)
+    m = 1 << M_LOG2
+    table = os.path.join(RUN_DIR, os.path.basename(bsgs.table_path(m)))
+    run = _cli_run(_run_dir("speedcheck", [pub]),
+                   ["-m", "bsgs", "--device", "cuda", "-k", "16", "--load-ptable",
+                    "--ptable", table, "-f", "targets.txt", "-r",
+                    f"{start:x}:{start + int(2 * speed * seconds):x}", "-s", "30"])
+    rep = _report(run)
+    out["speedcheck"] = {**run, **rep, "claimed_keys_per_s": speed,
+                         "scheduled_s": seconds, "planted": [key]}
+    emit(out)
+    if run["rc"] != 0 or run["found"] != [key] or not rep.get("search_s", 1e9) <= seconds:
+        raise AssertionError(f"speedcheck: found {run['found']} (planted {key:#x}) "
+                             f"in {rep.get('search_s')} s, scheduled {seconds} s")
+    return run
+
+
 def _path_shape_kernels(rng, device) -> dict:
     """name -> (kernel, plain version, operands(n), compare) of K1-K6:
     random operands of width n with 0, 1, p-1, p and 2^256-1 planted in the
@@ -1261,12 +1504,14 @@ def main() -> int:
     name, smi = phase_device()
     stats = phase_kernels(device)
     runs = {"vpu_tool": [phase_vpu_tool()], "bsgs": phase_e2e()}
-    phase_rate(device, smi)
+    rate = phase_rate(device, smi)
     runs["walker"] = phase_walker_e2e()
-    phase_walker_rate(device, smi)
+    walker_rate = phase_walker_rate(device, smi)
     runs["minikeys"] = phase_minikeys_e2e()
-    phase_minikeys_rate(device, smi)
+    minikeys_rate = phase_minikeys_rate(device, smi)
     runs["bsgs_tables"] = phase_bsgs_tables(device)
+    runs["mesh"] = phase_mesh(device, smi, rate)
+    runs["tools"] = [phase_tools(smi, rate, walker_rate, minikeys_rate)]
     launches = phase_path_shapes(device, runs, stats)
     leaked = sorted(n for n in sys.modules
                     if n == "jax" or n.startswith("jax.")

@@ -23,6 +23,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)),
                           "build", "keyhunt_tpu_torch")
@@ -177,6 +179,24 @@ def entry(stem: str, fn: str):
 def check(rc: int, fn: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
+
+
+def launch(stem: str, fn: str, device, *args) -> None:
+    """Call the kernel entry `fn` of library `stem` for operands on the
+    CUDA device `device`, with that device's current stream as the last
+    argument, and raise if the launch fails. A ctypes call launches on the
+    CUDA runtime's current device, not on its operands', so when `device`
+    is not the current one the call runs under `torch.cuda.device(device)`:
+    a shard's kernel on cuda:i runs on cuda:i, in the order of cuda:i's
+    stream."""
+    f = entry(stem, fn)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = f(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = f(*args, stream)
+    check(rc, fn)
 
 
 _SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]+?)\s*;")

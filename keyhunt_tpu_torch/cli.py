@@ -5,6 +5,10 @@ keyhunt.cpp:6624-6675) plus ``--device {cuda,cpu}`` (cuda by default).
 Every search mode runs on PyTorch: ``-m bsgs``, the walker modes address
 (``-c eth`` too), rmd160, xpoint, eth and vanity, and ``-m minikeys``
 (``-f`` addresses, ``-C`` base minikey, ``-8`` alphabet, ``-R``).
+``--devices N`` shards BSGS and the walker modes across N devices of this
+process (default: every visible CUDA device, or 1 shard with ``--device
+cpu``); ``--coordinator HOST:PORT --num-processes P --process-id I``
+joins P such processes into one mesh (`runtime.setup`).
 
     python -m keyhunt_tpu_torch.cli -m bsgs -f pubkeys.txt -r 1:80000 \\
         -n 0x100000 -k 1 --device cpu
@@ -15,6 +19,8 @@ Every search mode runs on PyTorch: ``-m bsgs``, the walker modes address
         -r 100000000:1ffffffff
     python -m keyhunt_tpu_torch.cli -m minikeys -f addresses.txt \\
         -C SG64GZqySYwBm9KxE3wJ29 --max-seconds 60
+    python -m keyhunt_tpu_torch.cli -m xpoint -f x.txt -r 1:1600 \\
+        --device cpu --devices 8 --pivots 2 --width 32 --steps 2
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,9 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=16, help="inner scan steps per dispatch")
     p.add_argument("--max-seconds", type=float, default=None)
     p.add_argument("--devices", type=int, default=None,
-                   help="devices to shard across (only 1 is ported)")
+                   help="shards of this process (default: every visible "
+                        "CUDA device; 1 with --device cpu, where N shards "
+                        "run in turn on the CPU)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host coordinator (not yet ported)")
+                   help="torch.distributed rendezvous of a multi-process "
+                        "run (process 0 listens there)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -139,6 +150,29 @@ def parse_int(s: str) -> int:
         return int(s, 16)
     except ValueError:
         return int(s, 10)
+
+
+def resolve_devices(args, device) -> int:
+    """--devices N: the shards of this process; by default every visible
+    CUDA device (keyhunt_tpu: every attached device), 1 on the CPU."""
+    if args.devices is not None:
+        if args.devices < 1:
+            raise SystemExit(f"[E] --devices {args.devices}: need at least one")
+        return args.devices
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def start_runtime(args) -> None:
+    """--coordinator/--num-processes/--process-id (or the KEYHUNT_TPU_*
+    environment variables) -> `runtime.setup`."""
+    from . import runtime
+    try:
+        runtime.setup(coordinator=args.coordinator,
+                      num_processes=args.num_processes,
+                      process_id=args.process_id, device=args.device)
+    except (KeyError, ValueError) as exc:
+        raise SystemExit(f"[E] multi-process run: --coordinator needs "
+                         f"--num-processes and --process-id ({exc})")
 
 
 def resolve_range(args, allow_default: bool = True) -> tuple[int, int]:
@@ -209,11 +243,9 @@ def translate_mapped_flags(args) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.coordinator or (args.num_processes or 1) > 1:
-        raise SystemExit("[E] multi-host search is not yet ported to "
-                         "keyhunt_tpu_torch (use keyhunt_tpu)")
     from .device import resolve_device
     device = resolve_device(args.device)
+    start_runtime(args)
     if args.mode == "minikeys":
         from .search.minikeys import run_minikeys_cli
         return run_minikeys_cli(args, device)
@@ -246,9 +278,6 @@ def run_walker_cli(args, device) -> int:
     from .search.engine import Engine
     from .search.walker import WalkerConfig
 
-    if (args.devices or 1) > 1:
-        raise SystemExit("[E] --devices > 1 (multi-device search) is not yet "
-                         "ported to keyhunt_tpu_torch (use keyhunt_tpu)")
     if not args.file and args.mode != "vanity":
         raise SystemExit("[E] -f FILE required")
     if args.file and not os.path.exists(args.file):
@@ -270,8 +299,10 @@ def run_walker_cli(args, device) -> int:
     else:
         ts = tio.load_eth_file(args.file, use_cache=True)
         wmode = "eth"
+    devices = resolve_devices(args, device)
     print(f"[+] keyhunt-tpu-torch: mode {args.mode}, {ts.count} targets, "
-          f"range {start:#x}:{end:#x}, device {device}", flush=True)
+          f"range {start:#x}:{end:#x}, device {device}, devices {devices}",
+          flush=True)
     try:
         cfg = WalkerConfig(pivots=args.pivots, width=args.width,
                            steps=args.steps, stride=parse_int(args.stride),
@@ -280,7 +311,7 @@ def run_walker_cli(args, device) -> int:
         raise SystemExit(f"[E] {exc}")
     eng = Engine(cfg, ts, start, end, random_mode=args.random,
                  quiet=args.quiet, stats_every=args.stats, matrix=args.matrix,
-                 n_seq=resolve_nseq(args), device=device)
+                 n_seq=resolve_nseq(args), device=device, devices=devices)
     eng.run(max_seconds=args.max_seconds)
     print(f"[+] done: {len(eng.found_keys)} key(s) found", flush=True)
     return 0

@@ -2,9 +2,9 @@
 
 Counterpart of keyhunt_tpu/ops/pallas_field.py, named for what it now is.
 Each wrapper takes contiguous (8, n) int32 limb tensors on a CUDA device,
-allocates its output with `torch.empty`, launches on the current stream,
-raises if the launch fails, and counts the launch with
-`_build.count_launch`. They never run on the CPU: the routers
+allocates its output with `torch.empty`, launches on that device and its
+current stream (`_build.launch`), raises if the launch fails, and counts
+the launch with `_build.count_launch`. They never run on the CPU: the routers
 in `ops.field` send CPU tensors to the plain versions.
 """
 
@@ -19,9 +19,13 @@ _LIB = "field_kernels"
 
 
 def check_limbs(*ts: torch.Tensor) -> int:
-    """Validate kernel operands: CUDA, int32, contiguous (8, n), one shape.
-    Returns n."""
+    """Validate kernel operands: CUDA, one device, int32, contiguous
+    (8, n), one shape. Returns n."""
     shape = ts[0].shape
+    devices = list(dict.fromkeys(str(t.device) for t in ts))
+    if len(devices) > 1:
+        raise ValueError(f"kernel operands on more than one device: "
+                         f"{', '.join(devices)}")
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"kernel operand on {t.device}, expected cuda")
@@ -37,17 +41,12 @@ def check_limbs(*ts: torch.Tensor) -> int:
     return int(shape[1])
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1: (a * b) mod p, lazy (< 2^256)."""
     n = check_limbs(a, b)
     out = torch.empty_like(a)
-    fn = _build.entry(_LIB, "kh_field_mul")
-    _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _stream()),
-                 "kh_field_mul")
+    _build.launch(_LIB, "kh_field_mul", a.device, a.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), n)
     _build.count_launch("field_mul", n)
     return out
 
@@ -56,8 +55,7 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     """K2: a^2 mod p, lazy."""
     n = check_limbs(a)
     out = torch.empty_like(a)
-    fn = _build.entry(_LIB, "kh_field_sqr")
-    _build.check(fn(a.data_ptr(), out.data_ptr(), n, _stream()), "kh_field_sqr")
+    _build.launch(_LIB, "kh_field_sqr", a.device, a.data_ptr(), out.data_ptr(), n)
     _build.count_launch("field_sqr", n)
     return out
 
@@ -73,8 +71,7 @@ def batch_inv(x: torch.Tensor) -> torch.Tensor:
     # allocator hands the block only to work queued after them on this stream
     scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32,
                           device=x.device)
-    fn = _build.entry(_LIB, "kh_batch_inv")
-    _build.check(fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
-                    _stream()), "kh_batch_inv")
+    _build.launch(_LIB, "kh_batch_inv", x.device, x.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), n)
     _build.count_launch("batch_inv", n)
     return out

@@ -84,12 +84,10 @@ def giant_scan_cuda(X, Y, Z, cx_int: int, cy_int: int, steps: int):
     zs = torch.empty_like(xs)
     dg = torch.empty((steps, L), dtype=torch.int32, device=X.device)
     consts = np.ascontiguousarray(_consts(cx_int, cy_int).T)  # cx[8] cy[8] ...
-    fn = _build.entry("jacwalk", "kh_giant_scan")
-    rc = fn(X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
-            *(o.data_ptr() for o in outs), xs.data_ptr(), zs.data_ptr(),
-            dg.data_ptr(), L, steps, consts.ctypes.data,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "kh_giant_scan")
+    _build.launch("jacwalk", "kh_giant_scan", X.device, X.data_ptr(),
+                  Y.data_ptr(), Z.data_ptr(), *(o.data_ptr() for o in outs),
+                  xs.data_ptr(), zs.data_ptr(), dg.data_ptr(), L, steps,
+                  consts.ctypes.data)
     _build.count_launch("giant_scan", (L, steps))
     return (*outs, xs, zs, dg)
 

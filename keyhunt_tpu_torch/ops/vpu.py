@@ -66,9 +66,8 @@ def _launch(body: str, x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous() or x.numel() == 0:
         raise ValueError("vpu operand must be contiguous and non-empty")
     out = torch.empty_like(x)
-    fn = _build.entry(_LIB, f"kh_vpu_{body}")
-    _build.check(fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                    torch.cuda.current_stream().cuda_stream), f"kh_vpu_{body}")
+    _build.launch(_LIB, f"kh_vpu_{body}", x.device, x.data_ptr(),
+                  out.data_ptr(), x.numel())
     _build.count_launch(f"vpu_{body}", x.numel())
     return out
 

@@ -1,6 +1,6 @@
 """Baby-Step Giant-Step search on PyTorch: the port's main path.
 
-Counterpart of keyhunt_tpu/search/bsgs.py, on one device. The baby table
+Counterpart of keyhunt_tpu/search/bsgs.py. The baby table
 holds the top-64-bit X fragments of j*G for j = 1..m, sorted, as packed
 bucket slabs resident on the device. Every dispatch advances T targets x
 B lanes by S Jacobian giant steps (kernel K4), converts all S*T*B emitted
@@ -13,8 +13,11 @@ The engine sweeps the range once per pass: one pass over the whole table;
 with ggsb, one per block of baby indices; with `table_partitions` P, one
 per bucket partition (a ranged probe, one partition resident at a time).
 The table is a host-built `BabyTable` or a device-built
-`search.dtable.DeviceTable` (`--dtable`). More than one device is not in
-the port yet (it raises a clear error).
+`search.dtable.DeviceTable` (`--dtable`). With a mesh of more than one
+shard (`devices`, `parallel.mesh`), the table is sharded by bucket across
+the shards and each shard walks its own lanes
+(`parallel.bsgs_sharded`); a mesh takes the host table only, and resizes
+no lanes when targets drop out, as in keyhunt_tpu.
 
 Four behaviours differ from keyhunt_tpu on purpose (its reference
 defects, recorded in ROADMAP.md):
@@ -41,7 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, runtime
 from ..device import resolve_device, to_device
 from ..io.results import ResultSink
 from ..ref import ecc
@@ -55,11 +58,6 @@ from ..trace import span
 #: lie 2B strides apart), so more than 4 targets can fill a row; the engine
 #: then re-runs the block with a slot for every lane.
 DEGEN_SLOTS = 4
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"[E] {what} is not yet ported to keyhunt_tpu_torch "
-                      f"(use keyhunt_tpu)")
 
 
 # ---------------------------------------------------------------------------
@@ -516,16 +514,24 @@ def seed_lanes(cfg: BsgsConfig, targets: list, c0: int, on_exact=None,
     return u256.from_ints(xs), u256.from_ints(ys)
 
 
+def check_range(start: int, end: int) -> None:
+    """Raise ValueError unless [start, end] is a range the engine takes."""
+    if not end > start >= 1:
+        raise ValueError(f"bad range {start:#x}:{end:#x}")
+
+
 class BsgsEngine:
-    """Host orchestration on one device: seeds lanes, dispatches giant
-    batches (at most PIPELINE in flight), verifies candidates exactly,
-    reconstructs keys (c +- j) and reports them. All T unfound targets
-    share one batch of T*B lanes; found targets drop out of it. `tbl` is a
-    BabyTable or a device-built DeviceTable; the range is swept once per
-    pass (`_build_passes`). Counts what it did: `dispatches`,
-    `giant_points`, `probe_hits`, `false_hits` (probe hits that verified
-    no key) and `run_seconds` (the last `run()`'s wall time, drains
-    included)."""
+    """Host orchestration: seeds lanes, dispatches giant batches (at most
+    PIPELINE in flight), verifies candidates exactly, reconstructs keys
+    (c +- j) and reports them. All T unfound targets share one batch of
+    T*B lanes; found targets drop out of it. `tbl` is a BabyTable or a
+    device-built DeviceTable; the range is swept once per pass
+    (`_build_passes`). `devices` is a shard count or a `parallel.mesh.Mesh`:
+    with more than one shard in all, each of the D shards walks B lanes
+    per target and holds 1/D of the table (keyhunt_tpu's `devices`).
+    Counts what it did: `dispatches`, `giant_points`, `probe_hits`,
+    `false_hits` (probe hits that verified no key) and `run_seconds` (the
+    last `run()`'s wall time, drains included)."""
 
     #: in-flight dispatches before the oldest payload is drained
     PIPELINE = 3
@@ -534,12 +540,19 @@ class BsgsEngine:
                  start: int, end: int, sink: ResultSink | None = None,
                  quiet: bool = False, rng_seed: int | None = None,
                  stats_every: float = 5.0, matrix: bool = False,
-                 device: torch.device | str = "cuda"):
-        if not end > start >= 1:
-            raise ValueError(f"bad range {start:#x}:{end:#x}")
+                 device: torch.device | str = "cuda", devices=None):
+        check_range(start, end)
         self.cfg = cfg
         self.tbl = tbl
         self.device = resolve_device(device)     # raises without a GPU
+        from ..parallel.mesh import as_mesh      # (parallel imports search)
+        self.mesh = as_mesh(devices, self.device)
+        self.n_devices = self.mesh.size if self.mesh else 1
+        if self.mesh:
+            if tbl.perm is None:
+                raise ValueError("the device-built table (--dtable) supports "
+                                 "a single resident device")
+            self.device = self.mesh.home
         self.targets = list(targets)          # [(x, y) points]
         self.start, self.end = start, end
         self.sink = sink or ResultSink(quiet=quiet)
@@ -580,6 +593,11 @@ class BsgsEngine:
             if tbl.perm is None:
                 raise ValueError("table partitions need the host baby table "
                                  "(--dtable has no host index)")
+            if self.mesh:
+                # composed with the mesh: pass p keeps piece p of every
+                # shard's bucket range resident (parallel.bsgs_sharded)
+                return [("spart", p, cfg.table_partitions)
+                        for p in range(cfg.table_partitions)]
             parts, starts, shift = bucket_partitions(tbl, cfg.table_partitions)
             return [("part", slab, base, starts, shift) for slab, base in parts]
         if cfg.scheduler != "ggsb":
@@ -614,6 +632,9 @@ class BsgsEngine:
         index, None for a sentinel) and builds the step fn."""
         self._pass = entry
         self._slab = None
+        if self.mesh:
+            self._set_sharded_pass(entry)
+            return
         if entry[0] == "part":
             _, slab, base, starts, shift = entry
             self._slab = to_device(np.asarray(slab), self.device)
@@ -633,15 +654,47 @@ class BsgsEngine:
         self._shift = shift
         self._set_step()
 
+    def _set_sharded_pass(self, entry):
+        """A pass on the mesh: ("spart", p, P) keeps piece p of every
+        shard's bucket range resident; ("tbl", table) shards the table.
+        The shards are uploaded once per pass and shared by the re-run
+        step fns; the whole table's stay cached on the table, as its
+        one-device slab does."""
+        from ..parallel.bsgs_sharded import resident_shards
+        # release the previous pass's shards, and the step fns holding
+        # them, before this pass's are uploaded
+        self._resident = self.step_fn = None
+        self._wide_fns = {}
+        if entry[0] == "spart":
+            _, part, parts = entry
+            tbl = self.tbl
+        else:
+            part, parts, tbl = 0, 1, entry[1]
+        self._resident = resident_shards(tbl, self.mesh, part, parts,
+                                         cache=tbl is self.tbl)
+        self._pos_to_j = self._resident.pos_to_j
+        self._set_step()
+
+    def _make_step(self, cfg, degen_slots: int = DEGEN_SLOTS):
+        if self.mesh:
+            from ..parallel.bsgs_sharded import make_sharded_giant_step
+            return make_sharded_giant_step(cfg, self._resident, self.mesh,
+                                           len(self.targets), degen_slots)
+        return make_giant_step_fn(cfg, *self._step_args, degen_slots=degen_slots)
+
     def _set_step(self):
         """The step fn for the current lanes and targets."""
-        q = self.cfg.steps * len(self.targets) * self.cfg.lanes
-        self._step_args = (self._shift,
-                           probe_chunks_for(q, int(self._slab.shape[1])))
-        self.step_fn = make_giant_step_fn(self.cfg, *self._step_args)
+        if not self.mesh:
+            q = self.cfg.steps * len(self.targets) * self.cfg.lanes
+            self._step_args = (self._shift,
+                               probe_chunks_for(q, int(self._slab.shape[1])))
+        self.step_fn = self._make_step(self.cfg)
         self._wide_fns = {}     # (K, D) -> step fn of a block re-run
 
     def _dispatch(self, state):
+        if self.mesh:
+            *state, payload = self.step_fn(*state)
+            return tuple(state), payload
         Xo, Yo, Zo, payload = self.step_fn(*state, self._slab, self._base)
         return (Xo, Yo, Zo), payload
 
@@ -653,7 +706,7 @@ class BsgsEngine:
         host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
         host.copy_(payload, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(payload.device))
         return host, ev
 
     def _drain(self, c0, fetched):
@@ -681,16 +734,18 @@ class BsgsEngine:
               f"{', a full degenerate-lane row' if flags_full else ''}): "
               f"block re-run with {K} hit slots", flush=True)
         if (K, D) not in self._wide_fns:
-            self._wide_fns[K, D] = make_giant_step_fn(
-                dataclasses.replace(self.cfg, max_hits=K), *self._step_args,
-                degen_slots=D)
-        payload = self._wide_fns[K, D](*self._seed(c0), self._slab,
-                                       self._base)[3]
+            self._wide_fns[K, D] = self._make_step(
+                dataclasses.replace(self.cfg, max_hits=K), degen_slots=D)
+        if self.mesh:
+            payload = self._wide_fns[K, D](*self._seed(c0))[3]
+        else:
+            payload = self._wide_fns[K, D](*self._seed(c0), self._slab,
+                                           self._base)[3]
         self._decode(c0, payload.cpu().numpy(), K, D)
 
     def _lane_offsets(self):
-        """l * (2m) * G for l < lanes (Python seeding path only)."""
-        want = self.cfg.lanes
+        """l * (2m) * G for l < D*lanes (Python seeding path only)."""
+        want = self.n_devices * self.cfg.lanes
         if self._offsets_cache is None or len(self._offsets_cache) != want:
             step = ecc.ec_mul(self.cfg.stride)
             pts, acc = [None], None
@@ -702,12 +757,22 @@ class BsgsEngine:
 
     def _seed(self, c0: int):
         """Jacobian lane state (X, Y, Z=1) on the device for block c0;
-        exact-landing lanes are recorded as found."""
-        px, py = seed_lanes(self.cfg, self.targets, c0, on_exact=self._record,
+        exact-landing lanes are recorded as found. On a mesh: global lane
+        l = d*B + b, every process seeding all D*B lanes of each target (so
+        all record the same exact landings), reordered shard-major (d, t,
+        b) and split into one (X, Y, Z) list entry per local shard."""
+        D, T, B = self.n_devices, len(self.targets), self.cfg.lanes
+        cfg = dataclasses.replace(self.cfg, lanes=D * B) if self.mesh else self.cfg
+        px, py = seed_lanes(cfg, self.targets, c0, on_exact=self._record,
                             lane_offsets=self._lane_offsets)
         z = np.zeros_like(px)
         z[0] = 1
-        return tuple(to_device(a, self.device) for a in (px, py, z))
+        if not self.mesh:
+            return tuple(to_device(a, self.device) for a in (px, py, z))
+        cols = [a.reshape(8, T, D, B).transpose(0, 2, 1, 3).reshape(8, D, T * B)
+                for a in (px, py, z)]
+        return tuple([to_device(np.ascontiguousarray(c[:, self.mesh.first + i]), dev)
+                      for i, dev in enumerate(self.mesh.devices)] for c in cols)
 
     def _record(self, t: int, key: int) -> bool:
         """Record `key` for target t unless it is already found; returns
@@ -771,8 +836,8 @@ class BsgsEngine:
 
     @property
     def span(self) -> int:
-        """Keys covered per dispatch per target."""
-        return self.cfg.lanes * self.cfg.steps * self.cfg.stride
+        """Keys covered per dispatch per target (all shards)."""
+        return self.n_devices * self.cfg.lanes * self.cfg.steps * self.cfg.stride
 
     def _resize_lanes(self, resume_c0: int) -> int | None:
         """Lanes per target after dropping found targets, or None when a
@@ -805,6 +870,7 @@ class BsgsEngine:
 
     def run(self, max_seconds: float | None = None, max_keys: int | None = None):
         t0 = time.time()
+        runtime.sync("bsgs-run")
         for entry in self._passes:
             if entry is not self._pass:
                 self._set_pass(entry)
@@ -835,6 +901,10 @@ class BsgsEngine:
         span = self.span
         last_stats = time.time()
         contiguous = cfg.scheduler in ("sequential", "ggsb", "angrygiant")
+        # dropout resizes lanes only where "resume from here" is defined (a
+        # contiguous sweep: random/dance cover the range statelessly), and
+        # on one device, as in keyhunt_tpu
+        can_resize = contiguous and not self.mesh
         state = None
         state_c0 = None
         inflight = []        # [(c0, (host payload, event))]
@@ -842,9 +912,7 @@ class BsgsEngine:
             if len(self.found) >= self._n_all:
                 break
             resume = state_c0 if state_c0 is not None else c0
-            # dropout only where "resume from here" is well-defined (a
-            # contiguous sweep); random/dance cover the range statelessly
-            if contiguous and self._resize_lanes(resume) is not None:
+            if can_resize and self._resize_lanes(resume) is not None:
                 self._resume_c0 = resume
                 break
             if state is None or not contiguous or state_c0 != c0:
@@ -857,10 +925,11 @@ class BsgsEngine:
             if len(inflight) > self.PIPELINE:
                 self._drain(*inflight.pop(0))
             self.dispatches += 1
-            self.giant_points += len(self.targets) * cfg.lanes * cfg.steps
+            self.giant_points += (self.n_devices * len(self.targets)
+                                  * cfg.lanes * cfg.steps)
             # a partition pass covers only m/P babies per giant point:
             # count effective keys (the full rate shows after P sweeps)
-            self.meter.add(cfg.keys_per_call(len(self.targets))
+            self.meter.add(self.n_devices * cfg.keys_per_call(len(self.targets))
                            // max(cfg.table_partitions, 1))
             now = time.time()
             if not self.quiet and now - last_stats >= self.stats_every:
@@ -876,40 +945,53 @@ class BsgsEngine:
         for e in inflight:
             self._drain(*e)
 
+    def _global_lane(self, g: int) -> tuple[int, int]:
+        """Flat query or flag index within a step -> (target, key lane).
+        On a mesh the layout is shard-major (d, t, b) and the key lane
+        (the centre index in c0 + lane*stride) is d*B + b."""
+        B = self.cfg.lanes
+        if not self.mesh:
+            return divmod(g, B)
+        d, r = divmod(g, len(self.targets) * B)
+        t, b = divmod(r, B)
+        return t, d * B + b
+
     def _decode(self, c0: int, arr: np.ndarray, K: int, D: int):
         """Record the keys of a fetched payload with K hit slots and D flag
-        slots per step; returns (hit count, whether a step's flag row is
-        full), which tell `_drain` whether slots overflowed."""
+        slots per step (per shard and step on a mesh); returns (hit count,
+        whether a flag row is full), which tell `_drain` whether slots
+        overflowed."""
         cfg = self.cfg
-        B = cfg.lanes
-        Lg = len(self.targets) * B            # query-space width per step
+        DB = self.n_devices * cfg.lanes       # global lanes per target
+        Lg = len(self.targets) * DB           # query-space width per step
         lanes, jsel = arr[:K], arr[K:2 * K]
         nhits = int(arr[2 * K])
-        flags = arr[2 * K + 1:].reshape(cfg.steps, D)
+        flags = arr[2 * K + 1:].reshape(-1, D)     # rows d*S + s
         if nhits > 0:
             for k in range(K):
                 g = int(lanes[k])
                 if g < 0:
                     continue
                 s, r = divmod(g, Lg)
-                t, lane = divmod(r, B)
-                c = c0 + (lane + s * B) * cfg.stride
+                t, lane = self._global_lane(r)
+                c = c0 + (lane + s * DB) * cfg.stride
                 # jsel is the padded slab position (None: sentinel slot)
                 j = self._pos_to_j(int(jsel[k]))
                 self.probe_hits += 1
                 if j is None or not (self._record(t, c - j)
                                      | self._record(t, c + j)):
                     self.false_hits += 1
-        # degenerate-lane flags: P == +-advance point, Q = (c +- B*stride)*G
-        for s in range(flags.shape[0]):
-            for g in flags[s]:
+        # degenerate-lane flags: P == +-advance point, Q = (c +- DB*stride)*G
+        for row in range(flags.shape[0]):
+            s = row % cfg.steps
+            for g in flags[row]:
                 g = int(g)
                 if g < 0:
                     continue
-                t, lane = divmod(g, B)
-                c = c0 + (lane + s * B) * cfg.stride
-                self._record(t, c + B * cfg.stride)
-                self._record(t, c - B * cfg.stride)
+                t, lane = self._global_lane(g)
+                c = c0 + (lane + s * DB) * cfg.stride
+                self._record(t, c + DB * cfg.stride)
+                self._record(t, c - DB * cfg.stride)
         return nhits, bool((flags[:, -1] >= 0).any())
 
 
@@ -950,7 +1032,7 @@ def derive_m(n_value: int | None, k: int) -> int:
 
 def run_bsgs_cli(args, device: torch.device) -> int:
     from ..io.targets import load_pubkeys_file
-    from ..cli import resolve_range, parse_int
+    from ..cli import parse_int, resolve_devices, resolve_range
 
     # flag incompatibilities, exactly as the reference rejects them
     # (keyhunt.cpp:1185-1194)
@@ -958,18 +1040,17 @@ def run_bsgs_cli(args, device: torch.device) -> int:
         raise SystemExit("[E] Endomorphism doesn't work with BSGS")
     if parse_int(getattr(args, "stride", "1") or "1") != 1:
         raise SystemExit("[E] Stride doesn't work with BSGS")
-    if (args.devices or 1) > 1:
-        raise _not_ported("--devices > 1 (multi-device search)")
     if not args.file:
         raise SystemExit("[E] -f FILE with public keys required")
     if not os.path.exists(args.file):
         raise SystemExit(f"[E] can't open file {args.file}")
     pts = load_pubkeys_file(args.file)
     start, end = resolve_range(args)
+    devices = resolve_devices(args, device)
     n_value = parse_int(args.nvalue) if args.nvalue else None
     m = derive_m(n_value, args.kfactor)
     print(f"[+] BSGS: {len(pts)} pubkeys, m={m:#x}, range {start:#x}:{end:#x}, "
-          f"device {device}", flush=True)
+          f"device {device}, devices {devices}", flush=True)
     path = getattr(args, "ptable", None) or table_path(m, args.tmpdir)
     tbl = None
     if args.dtable:
@@ -977,7 +1058,7 @@ def run_bsgs_cli(args, device: torch.device) -> int:
         if args.save or args.load_ptable:
             raise SystemExit("[E] --dtable builds in device memory; "
                              "-S/--load-ptable do not apply")
-        if args.table_partitions > 1:
+        if args.table_partitions > 1 or devices > 1 or runtime.current():
             raise SystemExit("[E] --dtable supports a single resident "
                              "device for now")
         from .dtable import build_device_table
@@ -1015,7 +1096,7 @@ def run_bsgs_cli(args, device: torch.device) -> int:
                      table_partitions=args.table_partitions)
     eng = BsgsEngine(cfg, tbl, pts, start, end, quiet=args.quiet,
                      stats_every=args.stats, matrix=args.matrix,
-                     device=device)
+                     device=device, devices=devices)
     found = eng.run(max_seconds=args.max_seconds)
     if not args.quiet:
         secs = max(eng.run_seconds, 1e-9)

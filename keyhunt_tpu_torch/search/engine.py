@@ -1,6 +1,6 @@
-"""Search engine of the brute-force modes on one device: claims range
-chunks, dispatches walker steps, verifies hit candidates exactly on the
-host, and records found keys.
+"""Search engine of the brute-force modes: claims range chunks, dispatches
+walker steps, verifies hit candidates exactly on the host, and records
+found keys.
 
 Counterpart of keyhunt_tpu/search/engine.py. The host/device split mirrors
 the reference's thread loop (`thread_process`, `keyhunt.cpp:3265-3861`):
@@ -10,7 +10,10 @@ it. Keys below the walker's pivot floor and above its keyspace-top cap are
 covered on the host (the port's `native` batch, or `ref` without a
 compiler). A dispatch with more hits in an inner step than the top-k
 slots is re-run with wider slots, where keyhunt_tpu drops the hits past
-its max_hits. More than one device is not ported yet.
+its max_hits. With a mesh of D > 1 shards (`devices`, `parallel.mesh`)
+each shard walks its own A pivots of the interleaved global layout, one
+dispatch covers D times the keys, and the hit rows of every shard come
+back to every process.
 """
 
 from __future__ import annotations
@@ -22,16 +25,16 @@ import time
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, runtime
 from ..device import resolve_device, to_device
 from ..io import base58 as b58
 from ..io.results import ResultSink
 from ..io.targets import TargetSet
 from ..ops import match
+from ..parallel import mesh as pmesh
 from ..ref import ecc
 from ..ref.hashes import eth_address, hash160
 from ..stats import SpeedMeter, si
-from .bsgs import _not_ported
 from .walker import (VARIANT_ENDO_POWER, WalkerConfig, decode_hit,
                      make_step_fn, seed_pivots)
 
@@ -49,9 +52,9 @@ class Engine:
                  device: torch.device | str = "cuda"):
         if not end > start >= 1:
             raise ValueError(f"bad range {start:#x}:{end:#x}")
-        if (devices or 1) > 1:
-            raise _not_ported("--devices > 1 (multi-device search)")
         self.device = resolve_device(device)     # raises without a GPU
+        self.mesh = pmesh.as_mesh(devices, self.device)
+        self.n_devices = self.mesh.size if self.mesh else 1
         self.cfg = cfg
         self.targets = targets
         self.start = start
@@ -71,19 +74,25 @@ class Engine:
         if targets.t0 is None:            # vanity: range compare, no table
             targets.t0, targets.t1 = match.build_table([])
         slab0, slab1, self._shift = targets.bucket_slabs()
-        self._slab0 = to_device(slab0, self.device)
-        self._slab1 = to_device(slab1, self.device)
-        self.step_fn = make_step_fn(cfg, self._shift, self.device)
+        if self.mesh:
+            self._slab0 = self.mesh.replicate(slab0)
+            self._slab1 = self.mesh.replicate(slab1)
+        else:
+            self._slab0 = to_device(slab0, self.device)
+            self._slab1 = to_device(slab1, self.device)
+        self.step_fn = self._make_step(cfg)
         self._wide_fns = {}         # K -> step fn of a dispatch re-run
         self.found_keys: set[int] = set()
         # distinct targets matched (an xpoint target matches both k and N-k)
         self.found_targets: set = set()
-        # pivot keys are k0 + (a + 1 - A)*stride and offsets reach
-        # A*W*stride: a pivot key equal to an offset key would give a zero
-        # slope denominator, so k0 must be STRICTLY greater than
-        # (A*W + A - 1)*stride. The low region is covered on the host.
-        # walker_base stays on the stride grid (keys are start + i*stride).
-        self.low_bound = (cfg.pivots * (cfg.width + 1) - 1) * cfg.stride + 1
+        # pivot keys are k0 + (g + 1 - G)*stride for G = D*A global pivots
+        # and offsets reach G*W*stride: a pivot key equal to an offset key
+        # would give a zero slope denominator, so k0 must be STRICTLY
+        # greater than (G*W + G - 1)*stride. The low region is covered on
+        # the host. walker_base stays on the stride grid (keys are
+        # start + i*stride).
+        npiv = self.n_devices * cfg.pivots
+        self.low_bound = (npiv * (cfg.width + 1) - 1) * cfg.stride + 1
         base = start - cfg.stride
         deficit = self.low_bound - base
         if deficit > 0:
@@ -93,16 +102,46 @@ class Engine:
         # the last call's pivots reach end_capped + span, so stay a span and
         # an offset reach below N; the sliver above is covered on the host
         self.high_bound = ecc.N - self.span \
-            - (cfg.pivots * (cfg.width + 1) + 2) * cfg.stride
+            - (npiv * (cfg.width + 1) + 2) * cfg.stride
         self.end_capped = min(end, self.high_bound)
 
     @property
     def span(self) -> int:
-        """Keys covered by one dispatch."""
-        return self.cfg.keys_per_call * self.cfg.stride
+        """Keys covered by one dispatch (all shards)."""
+        return self.n_devices * self.cfg.keys_per_call * self.cfg.stride
+
+    def _make_step(self, cfg: WalkerConfig):
+        if self.mesh:
+            return pmesh.make_sharded_step_fn(
+                cfg, self._slab0, self._slab1, self.mesh, self._shift)
+        return make_step_fn(cfg, self._shift, self.device)
 
     def _seed(self, k0: int):
-        return tuple(to_device(a, self.device) for a in seed_pivots(self.cfg, k0))
+        """Pivot state for base k0: (px, py) on the device, or on a mesh
+        one (8, A) tensor per local shard (global pivots d*A .. d*A+A-1)."""
+        if not self.mesh:
+            return tuple(to_device(a, self.device)
+                         for a in seed_pivots(self.cfg, k0))
+        A, first = self.cfg.pivots, self.mesh.first
+        px, py = pmesh.seed_pivots_sharded(self.cfg, k0, self.n_devices)
+        return tuple([to_device(np.ascontiguousarray(a[:, (first + i) * A:
+                                                         (first + i + 1) * A]), dev)
+                      for i, dev in enumerate(self.mesh.devices)]
+                     for a in (px, py))
+
+    def _dispatch(self, step_fn, px, py):
+        """One dispatch: (px', py', packed), packed the (D*S, K+1) hit rows
+        (shard-major on a mesh)."""
+        if self.mesh:
+            return step_fn(px, py)[:3]
+        return step_fn(px, py, self._slab0, self._slab1)
+
+    def _decode_hit(self, k0: int, row: int, flat_idx: int):
+        if self.mesh:
+            d, s = divmod(row, self.cfg.steps)
+            return pmesh.decode_sharded_hit(self.cfg, k0, d, s, flat_idx,
+                                                  self.n_devices)
+        return decode_hit(self.cfg, k0, row, flat_idx)
 
     # -- host coverage of the keyspace edges -------------------------------
 
@@ -267,7 +306,7 @@ class Engine:
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(packed.device))
         return host, ev
 
     def _drain(self, k0, fetched):
@@ -288,15 +327,14 @@ class Engine:
               f"inner step, {self.cfg.max_hits} slots): dispatch re-run with "
               f"{K} hit slots", flush=True)
         if K not in self._wide_fns:
-            self._wide_fns[K] = make_step_fn(
-                dataclasses.replace(self.cfg, max_hits=K), self._shift,
-                self.device)
-        packed = self._wide_fns[K](*self._seed(k0), self._slab0, self._slab1)[2]
+            self._wide_fns[K] = self._make_step(
+                dataclasses.replace(self.cfg, max_hits=K))
+        packed = self._dispatch(self._wide_fns[K], *self._seed(k0))[2]
         self._decode(k0, packed.cpu().numpy())
 
     def _decode(self, k0: int, packed: np.ndarray) -> int:
-        """Verify and record the hits of a fetched (S, K+1) dispatch result;
-        returns the largest hit count of its inner steps."""
+        """Verify and record the hits of a fetched (D*S, K+1) dispatch
+        result; returns the largest hit count of its inner steps."""
         hits, counts = packed[:, :-1], packed[:, -1]
         if counts.sum() == 0:
             return 0
@@ -304,7 +342,7 @@ class Engine:
             for f in hits[row]:
                 if f < 0:
                     continue
-                variant, key = decode_hit(self.cfg, k0, row, int(f))
+                variant, key = self._decode_hit(k0, row, int(f))
                 # two-sided range contract (the reference rejects hits
                 # outside [start, end] in both directions)
                 if self.start <= key <= self.end:
@@ -318,6 +356,7 @@ class Engine:
 
     def run(self, max_seconds: float | None = None, max_keys: int | None = None):
         cfg = self.cfg
+        runtime.sync("walker-run")
         self._scan_low_region()
         if len(self.found_targets) >= self.stop_after > 0:
             return self.sink
@@ -329,12 +368,12 @@ class Engine:
         for k0 in self._chunks():
             if px is None or k0 != last_k0:
                 px, py = self._seed(k0)
-            px, py, packed = self.step_fn(px, py, self._slab0, self._slab1)
+            px, py, packed = self._dispatch(self.step_fn, px, py)
             last_k0 = k0 + span
             inflight.append((k0, self._fetch_async(packed)))
             if len(inflight) > self.PIPELINE:
                 self._drain(*inflight.pop(0))
-            self.meter.add(cfg.keys_per_call * cfg.keys_per_point)
+            self.meter.add(self.n_devices * cfg.keys_per_call * cfg.keys_per_point)
             now = time.time()
             if not self.quiet and now - last_stats >= self.stats_every:
                 lead, end = ("", "\n") if self.matrix else ("\r", "")

@@ -270,9 +270,10 @@ class MinikeysEngine:
 
 def run_minikeys_cli(args, device: torch.device) -> int:
     from ..io import targets as tio
-    from .bsgs import _not_ported
-    if (args.devices or 1) > 1:
-        raise _not_ported("--devices > 1 (multi-device search)")
+    from .. import runtime
+    if (args.devices or 1) > 1 or runtime.current():
+        raise SystemExit("[E] -m minikeys runs on one device: keyhunt_tpu "
+                         "has no multi-device minikeys either")
     if not args.file:
         raise SystemExit("[E] -f FILE with addresses required")
     if not os.path.exists(args.file):

@@ -41,7 +41,7 @@ def make_vanity_engine(prefixes: list[str], start: int, end: int,
 
 
 def run_vanity_cli(args, start: int, end: int, device: torch.device) -> int:
-    from ..cli import resolve_nseq
+    from ..cli import resolve_devices, resolve_nseq
     prefixes = list(args.vanity)
     if args.file:
         prefixes += tio.read_vanity_file(args.file)
@@ -54,7 +54,7 @@ def run_vanity_cli(args, start: int, end: int, device: torch.device) -> int:
                                  pivots=args.pivots, width=args.width,
                                  steps=args.steps, random_mode=args.random,
                                  quiet=args.quiet, endo=args.endomorphism,
-                                 devices=args.devices,
+                                 devices=resolve_devices(args, device),
                                  n_seq=resolve_nseq(args), device=device)
     except ValueError as exc:
         raise SystemExit(f"[E] {exc}")

@@ -124,18 +124,25 @@ def _vanity_mask(h: torch.Tensor, ranges: tuple) -> torch.Tensor:
     return m
 
 
-def make_step_fn(cfg: WalkerConfig, shift: int, device: torch.device | str):
+def make_step_fn(cfg: WalkerConfig, shift: int, device: torch.device | str,
+                 advance_mult: int = 1):
     """Build the dispatch: run(px, py, slab0, slab1) -> (px', py', packed).
 
     px, py: (8, A) canonical pivot limbs on `device`; slab0/slab1: the
     two-word bucket slabs of the targets (`TargetSet.bucket_slabs`) on
     `device`, bucket = w0 >> shift. packed: (S, K+1) int32, per inner step
     the flat indices of the first K hits into the (V, A, W) candidate space
-    (-1 padded) and the hit count."""
+    (-1 padded) and the hit count.
+
+    advance_mult: the shard count D of the sharded walker
+    (`parallel.mesh`). It strides the offset table by G = D*A global
+    pivots, so the shards walk interleaved lanes and every inner step
+    advances each pivot by the global batch G*W (keyhunt_tpu's argument of
+    the same name)."""
     A, W, S = cfg.pivots, cfg.width, cfg.steps
     device = torch.device(device)
-    gtx, gty = (u256.to_torch(a, device)
-                for a in curve.offset_table_strided(W, A * cfg.stride))
+    gtx, gty = (u256.to_torch(a, device) for a in
+                curve.offset_table_strided(W, advance_mult * A * cfg.stride))
     want_y = _needs_y(cfg.mode)
     qx, qy = gtx[:, None, :], gty[:, None, :]                 # (8, 1, W)
 

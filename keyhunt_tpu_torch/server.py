@@ -13,7 +13,11 @@ daemon's service contract (`bsgsd.cpp`):
 
 Each request runs a `BsgsEngine` on the shared table; the table caches its
 device slab, so the slab is uploaded once. Runs on the CUDA device unless
-`--device cpu` is given.
+`--device cpu` is given. `--devices N` shards each request's engine
+(table and lanes) across N devices. With `--coordinator` every process
+builds the table and joins one mesh; process 0 serves, and hands each
+query to the others through the process group's store, so all of them
+run each search's collectives together (`follow`).
 
     python -m keyhunt_tpu_torch.server -p 8080 -k 16
     printf '<pubkey> <from>:<to>\\n' | nc localhost 8080
@@ -28,10 +32,12 @@ import time
 
 import torch
 
+from . import runtime
 from .device import resolve_device
 from .io.results import ResultSink
 from .ref import ecc
-from .search.bsgs import BabyTable, BsgsConfig, BsgsEngine
+from .search.bsgs import (BabyTable, BsgsConfig, BsgsEngine, auto_lanes,
+                          check_range)
 
 
 class BsgsdServer:
@@ -39,7 +45,7 @@ class BsgsdServer:
                  lanes: int = 0, steps: int = 16, quiet: bool = True,
                  result_path: str = "KEYFOUNDKEYFOUND.txt",
                  max_lanes: int = 131072,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", devices=None):
         self.tbl = tbl
         self.host, self.port = host, port
         # lanes <= 0: auto-size per query to the requested range (powers
@@ -50,6 +56,8 @@ class BsgsdServer:
         self.quiet = quiet
         self.result_path = result_path
         self.device = resolve_device(device)
+        self.devices = devices          # shards of each request's engine
+        self._queries = 0               # queries handed to the other processes
         self._search_lock = threading.Lock()   # one search at a time
         self._sock: socket.socket | None = None
         self._stop = threading.Event()
@@ -58,17 +66,57 @@ class BsgsdServer:
     # -- search ------------------------------------------------------------
 
     def search(self, pubkey_hex: str, k_from: int, k_to: int) -> int | None:
-        from .search.bsgs import auto_lanes
         point = ecc.parse_pubkey_hex(pubkey_hex)
+        # a query the engine would refuse raises here, before any other
+        # process is handed it
+        cfg = self._config(k_from, k_to)
         with self._search_lock:
-            lanes = self.lanes if self.lanes > 0 else auto_lanes(
-                self.tbl.m, self.steps, k_from, k_to, cap=self.max_lanes)
-            cfg = BsgsConfig(m=self.tbl.m, lanes=lanes, steps=self.steps)
-            sink = ResultSink(path=self.result_path, quiet=True)
-            eng = BsgsEngine(cfg, self.tbl, [point], k_from, k_to,
-                             sink=sink, quiet=True, device=self.device)
-            found = eng.run()
-        return found.get(0)
+            self._publish(f"{pubkey_hex} {k_from} {k_to}")
+            return self._search(point, cfg, k_from, k_to)
+
+    def _config(self, k_from: int, k_to: int) -> BsgsConfig:
+        """The engine config of a query; raises ValueError for a range the
+        engine refuses."""
+        check_range(k_from, k_to)
+        lanes = self.lanes if self.lanes > 0 else auto_lanes(
+            self.tbl.m, self.steps, k_from, k_to, cap=self.max_lanes)
+        return BsgsConfig(m=self.tbl.m, lanes=lanes, steps=self.steps)
+
+    def _search(self, point, cfg: BsgsConfig, k_from: int,
+                k_to: int) -> int | None:
+        sink = ResultSink(path=self.result_path, quiet=True)
+        eng = BsgsEngine(cfg, self.tbl, [point], k_from, k_to, sink=sink,
+                         quiet=True, device=self.device, devices=self.devices)
+        return eng.run().get(0)
+
+    # -- the other processes of a multi-process daemon ---------------------
+
+    def _publish(self, query: str) -> None:
+        """Process 0: hand `query` (or "stop") to the other processes."""
+        rt = runtime.current()
+        if rt is not None and rt.world > 1:
+            rt.store.set(f"keyhunt:bsgsd:{self._queries}", query)
+            self._queries += 1
+
+    def follow(self) -> None:
+        """Processes 1..P-1: run every search process 0 publishes, in
+        order, until it publishes "stop". A query that fails here fails
+        the same way on process 0, which answers it 400 and goes on: so
+        does this process, and all of them stay on one query sequence."""
+        rt = runtime.current()
+        while True:
+            query = rt.store.get(f"keyhunt:bsgsd:{self._queries}").decode()
+            self._queries += 1
+            if query == "stop":
+                return
+            try:
+                pub, k_from, k_to = query.split()
+                k_from, k_to = int(k_from), int(k_to)
+                self._search(ecc.parse_pubkey_hex(pub),
+                             self._config(k_from, k_to), k_from, k_to)
+            except Exception as exc:                    # noqa: BLE001
+                if not self.quiet:
+                    print(f"[E] query {query!r}: {exc}", flush=True)
 
     # -- wire handling -----------------------------------------------------
 
@@ -182,8 +230,14 @@ class BsgsdServer:
         self._stop.set()
         if self._sock is not None:
             self._sock.close()
+        with self._search_lock:
+            self._publish("stop")
 
     def serve_forever(self):
+        rt = runtime.current()
+        if rt is not None and rt.rank > 0:
+            self.follow()
+            return
         self.start()
         try:
             while True:
@@ -196,8 +250,8 @@ def main(argv=None) -> int:
     """bsgsd CLI (reference flags: -i ip -p port -6 -k -n -t,
     bsgsd.cpp:775), plus --device."""
     import argparse
-    from .search.bsgs import (_not_ported, build_baby_table, derive_m,
-                              load_table, save_table)
+    from .cli import resolve_devices, start_runtime
+    from .search.bsgs import build_baby_table, derive_m, load_table, save_table
 
     ap = argparse.ArgumentParser(prog="keyhunt-tpu-torch-bsgsd")
     ap.add_argument("-i", "--ip", default="127.0.0.1")
@@ -221,19 +275,19 @@ def main(argv=None) -> int:
                     help="cuda: the hand-written kernels (fails without a "
                          "GPU); cpu: their plain PyTorch versions")
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices to shard across (only 1 is ported)")
+                    help="shards of each query's engine in this process "
+                         "(default: every visible CUDA device; 1 with "
+                         "--device cpu)")
     ap.add_argument("--tmpdir", default=".",
                     help="directory for persisted baby tables (-S)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="multi-host coordinator (not yet ported)")
+                    help="torch.distributed rendezvous of a multi-process "
+                         "daemon: run every process, process 0 serves")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    if (args.devices or 1) > 1:
-        raise _not_ported("--devices > 1 (multi-device search)")
-    if args.coordinator or (args.num_processes or 1) > 1:
-        raise _not_ported("the multi-host daemon")
     device = resolve_device(args.device)
+    start_runtime(args)
     n_value = int(args.nvalue, 16) if args.nvalue else None
     m = derive_m(n_value, args.kfactor)
     tbl = None
@@ -246,7 +300,8 @@ def main(argv=None) -> int:
             save_table(tbl, directory=args.tmpdir)
     srv = BsgsdServer(tbl, args.ip, args.port, lanes=args.lanes,
                       steps=args.steps, quiet=False,
-                      max_lanes=args.max_lanes, device=device)
+                      max_lanes=args.max_lanes, device=device,
+                      devices=resolve_devices(args, device))
     srv.serve_forever()
     return 0
 

@@ -135,14 +135,15 @@ def test_cli_cpu_finds_planted_keys(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [["-m", "minikeys", "--devices", "2"],
                                   ["-m", "bsgs", "--dtable", "-S"],
-                                  ["-m", "bsgs", "--devices", "2"],
+                                  ["-m", "bsgs", "--dtable", "--devices", "2"],
                                   ["-m", "bsgs", "--dtable", "--table-partitions", "2"]])
 def test_cli_not_ported_paths_exit(tmp_path, argv):
-    """Multi-device paths are not ported; `--dtable` refuses -S and table
-    partitions, with keyhunt_tpu's messages."""
+    """The refusals keyhunt_tpu has too: minikeys runs on one device, and
+    `--dtable` refuses -S, more than one device and table partitions, with
+    keyhunt_tpu's messages."""
     pub = tmp_path / "pub.txt"
     pub.write_text("04%064x%064x\n" % ecc.pubkey(5))
-    want = ("not yet ported" if "--dtable" not in argv else
+    want = ("runs on one device" if "--dtable" not in argv else
             "-S/--load-ptable do not apply" if "-S" in argv else
             "single resident device")
     with pytest.raises(SystemExit, match=want):

@@ -97,9 +97,23 @@ def test_client_helpers_match_jax(srv, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--devices", "2"], ["--coordinator", "h:1"]])
-def test_main_multi_device_not_ported(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        server.main(argv + ["--device", "cpu"])
+def test_main_multi_device_not_ported(argv, monkeypatch):
+    """The multi-device flags reach the daemon: `--devices 2` shards each
+    query's engine across 2 CPU shards (the daemon is built and queried
+    in-process in place of serving), and `--coordinator` without the
+    process counts exits with a clear error."""
+    if "--coordinator" in argv:
+        with pytest.raises(SystemExit, match="needs --num-processes"):
+            server.main(argv + ["--device", "cpu"])
+        return
+    built = []
+    monkeypatch.setattr(server.BsgsdServer, "serve_forever",
+                        lambda self: built.append(self))
+    assert server.main(argv + ["--device", "cpu", "-n", "0x100000", "-k", "1",
+                               "--lanes", "4", "--steps", "2"]) == 0
+    (srv,) = built
+    srv.result_path = os.devnull
+    assert srv.devices == 2 and srv.search(_pub(KEY), 1, 16384) == KEY
 
 
 def test_main_on_the_cpu_answers_a_query(tmp_path):
@@ -127,3 +141,59 @@ def test_main_on_the_cpu_answers_a_query(tmp_path):
         timer.cancel()
         proc.kill()
         proc.wait()
+
+
+def test_bad_range_is_refused_before_it_is_published(srv, monkeypatch):
+    """A query the engine would refuse raises before process 0 hands it to
+    the other processes of a multi-process daemon."""
+    published = []
+    monkeypatch.setattr(srv, "_publish", published.append)
+    for k_from, k_to in ((5, 1), (0, 16384), (7, 7)):
+        with pytest.raises(ValueError, match="bad range"):
+            srv.search(_pub(KEY), k_from, k_to)
+    assert published == []
+
+
+class _Store:
+    """The published queries, as a follower reads them from the store."""
+
+    def __init__(self, queries):
+        self.queries = {f"keyhunt:bsgsd:{i}": q.encode()
+                        for i, q in enumerate(queries)}
+
+    def get(self, key):
+        return self.queries[key]
+
+
+def test_follow_survives_a_failing_query(srv, monkeypatch, tmp_path):
+    """A follower goes on past queries that fail (process 0 answers them
+    400) and runs the next one: all processes stay on one query
+    sequence."""
+    from types import SimpleNamespace
+    from keyhunt_tpu_torch import runtime
+    queries = [f"{_pub(KEY)} 5 1", f"zz 1 {KEY + 100}",
+               f"{_pub(KEY)} 1 {KEY + 100}", "stop"]
+    monkeypatch.setattr(runtime, "current",
+                        lambda: SimpleNamespace(store=_Store(queries),
+                                                rank=1, world=1))
+    follower = server.BsgsdServer(srv.tbl, port=0, lanes=4, steps=2,
+                                  result_path=str(tmp_path / "found.txt"),
+                                  device="cpu")
+    got = []
+    search = follower._search
+    monkeypatch.setattr(follower, "_search",
+                        lambda *a: got.append(search(*a)) or got[-1])
+    follower.follow()
+    assert got == [KEY] and follower._queries == len(queries)
+
+
+def test_mesh_engines_share_one_shard_upload(tmp_path):
+    """On a mesh, every request's engine binds the table's cached shards:
+    one upload for the daemon's life, as on one device."""
+    tbl = bsgs.build_baby_table(256, device="cpu")
+    s = server.BsgsdServer(tbl, port=0, lanes=4, steps=2, device="cpu",
+                           devices=2, result_path=str(tmp_path / "found.txt"))
+    assert s.search(_pub(KEY), 1, 16384) == KEY
+    (shards,) = tbl.__dict__["_dev_shards"].values()
+    assert s.search(_pub(KEY), 1, 8192) == KEY
+    assert list(tbl.__dict__["_dev_shards"].values()) == [shards]

@@ -121,8 +121,8 @@ def test_divergence_walker_hits_past_top_k_are_found(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["-m", "minikeys", "--devices", "2"], "not yet ported"),
-    (["-m", "address", "--devices", "2", "-f", "x"], "not yet ported"),
+    (["-m", "minikeys", "--devices", "2"], "runs on one device"),
+    (["-m", "rmd160", "--devices", "0", "-f", "t.txt"], "need at least one"),
     (["-m", "rmd160", "-e", "-l", "both", "-f", "t.txt"], "endomorphism"),
 ])
 def test_cli_refusals(tmp_path, monkeypatch, argv, msg):
