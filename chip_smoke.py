@@ -22,10 +22,13 @@ prints no result:
    of the field pieces (`tools.field_latency`); K4 also with the static
    SASS instructions of its step loop (cuobjdump), registers and spills,
    the device ms of a call with the host's issue hidden, its issue share
-   and the SM clock while it runs back to back; then T1's three u32 bodies at B = 2^22 after 8 chained
-   passes, exactly against their plain versions, with source ops/s and
-   SASS instructions per element (cuobjdump of the built library) and per
-   second; T1's independent body
+   and the SM clock while it runs back to back; K5, K6 and T1's bodies
+   with their SASS instructions per element split by pipe (ALU,
+   FMA-heavy, other) and their pipe ceiling (`_build.pipe_ceiling`); then
+   T1's three u32 bodies at B = 2^22 after 8 chained passes, exactly
+   against their plain versions, with source ops/s and SASS instructions
+   per element (cuobjdump of the built library) and per second, each
+   bound fixed to the body's fewest instructions; T1's independent body
    back to back for ~3 s while nvidia-smi samples the SM clock (the issue
    rate at the measured clock); and the T1 tool (`python -m
    keyhunt_tpu_torch.tools.bench_vpu`) once on the card;
@@ -195,20 +198,19 @@ MAX_BOUND_SHARE = 1.05
 # 32x32->64 multiply two. Field multiply: 64 wide products, 64 carry adds,
 # ~40 for the fold; square: 36 products and the doubling; add/sub with
 # their folds ~24; one inversion by safegcd: ~18 batches of 30 divsteps
-# (~150) and the two 2x2 matrix updates of 9 limbs (~290). SHA-256
-# compression: 48 schedule words of 10 and 64 rounds of 13, plus 8;
-# RIPEMD-160 on 32 bytes: 160 line-rounds of 6 plus the byte swaps and the
-# final adds. Each kernel is charged its function's work, not its
-# implementation's: a batched inversion of n elements is Montgomery's 3
-# products per element and one inversion per call, whatever the kernel
-# spends on its tree or its grouping.
-OPS = {"mul": 232, "sqr": 170, "addsub": 24, "inv": 8000, "sha256": 1320,
-       "ripemd160": 973}
+# (~150) and the two 2x2 matrix updates of 9 limbs (~290). The hash
+# kernels and T1's bodies: `bench_builds.FEWEST` per element. Each kernel
+# is charged its function's work, not its implementation's: a batched
+# inversion of n elements is Montgomery's 3 products per element and one
+# inversion per call, whatever the kernel spends on its tree or its
+# grouping.
+OPS = {"mul": 232, "sqr": 170, "addsub": 24, "inv": 8000}
 
 
 def _cost(name: str, n) -> tuple[int, int]:
     """(bytes, operations) of one call of a kernel of K1-K6 over n
     elements (K4: n = (lanes, steps)): the arguments of `_bound`."""
+    from keyhunt_tpu_torch.tools.bench_builds import FEWEST
     if name == "giant_scan":
         L, S = n           # state in and out; X, Z and a flag per step
         return (L * 192 + S * L * 68,
@@ -216,9 +218,8 @@ def _cost(name: str, n) -> tuple[int, int]:
     return {"field_mul": (96 * n, n * OPS["mul"]),
             "field_sqr": (64 * n, n * OPS["sqr"]),
             "batch_inv": (64 * n, n * 3 * OPS["mul"] + OPS["inv"]),
-            "hash160_both": (72 * n, n * 2 * (OPS["sha256"] + OPS["ripemd160"])),
-            "hash160_uncompressed": (84 * n, n * (2 * OPS["sha256"]
-                                                  + OPS["ripemd160"]))}[name]
+            "hash160_both": (72 * n, n * FEWEST["hash160_both"]),
+            "hash160_uncompressed": (84 * n, n * FEWEST["hash160_uncompressed"])}[name]
 
 
 def emit(obj) -> None:
@@ -521,12 +522,26 @@ def _check_hashlib(name: str, got, cols, msgs) -> None:
         raise AssertionError(f"{name}: kernel != hashlib at columns {bad}")
 
 
+def _pipe_split(stem: str) -> dict:
+    """Per kernel of the built library `stem` that `bench_builds.FEWEST`
+    names: its SASS instructions per element by pipe (ALU, FMA-heavy,
+    other), the pipe ceiling and the commonest opcodes
+    (`bench_builds.pipe_stats`)."""
+    from keyhunt_tpu_torch import _build
+    from keyhunt_tpu_torch.tools import bench_builds
+    _build.build()
+    return bench_builds.pipe_stats(
+        _build.sass_listing(os.path.join(_build.BUILD_INFO["dir"], f"lib{stem}.so")))
+
+
 def _hash_kernels(rng, device) -> dict:
     """K5 at B = 2^18 (the walker's A*W) and at an odd B, K6 at 2^18, with
-    0, 1, p-1 and 2^256-1 planted in the first columns of X and Y."""
+    0, 1, p-1 and 2^256-1 planted in the first columns of X and Y; each
+    with its SASS instructions by pipe and its pipe ceiling."""
     from keyhunt_tpu_torch.ops import cuda_hash, field, u256
     from keyhunt_tpu_torch.ops import hash160 as h160
     P = field.P_INT
+    pipes = _pipe_split("hash160")
     B = WA * WW
     edges = [0, 1, P - 1, (1 << 256) - 1]
     x, y = _rand_limbs(rng, B, device), _rand_limbs(rng, B, device)
@@ -544,6 +559,7 @@ def _hash_kernels(rng, device) -> dict:
                            [bytes([pfx]) + v.to_bytes(32, "big") for v in xv])
     stats["hash160_both"] = {
         "max_abs_err": max(errs), "shape": [8, B], "odd_B": xo.shape[1],
+        "pipes": pipes["hash160_both"],
         "ms": median_ms(lambda: cuda_hash.hash160_both(x), 20),
         "plain_ms": median_ms(lambda: h160.hash160_both_plain(x), 3),
         **_bound(*_cost("hash160_both", B))}
@@ -557,7 +573,7 @@ def _hash_kernels(rng, device) -> dict:
                    [b"\x04" + a.to_bytes(32, "big") + b.to_bytes(32, "big")
                     for a, b in zip(u256.to_ints(x[:, cols]), u256.to_ints(y[:, cols]))])
     stats["hash160_uncompressed"] = {
-        "max_abs_err": err, "shape": [8, B],
+        "max_abs_err": err, "shape": [8, B], "pipes": pipes["hash160_uncompressed"],
         "ms": median_ms(lambda: cuda_hash.hash160_uncompressed(x, y), 20),
         "plain_ms": median_ms(lambda: h160.hash160_uncompressed_plain(x, y), 3),
         **_bound(*_cost("hash160_uncompressed", B))}
@@ -572,13 +588,17 @@ def _vpu_kernels(device) -> dict:
     exactly against its plain version's, the median ms of the 8 passes,
     source ops/s (the JAX tool's count), SASS instructions per element
     (`vpu.sass_per_element`: cuobjdump of the built library) and per
-    second (`bench_vpu.rates`). The bound counts 8 bytes and the SASS
-    instructions per element per pass."""
+    second (`bench_vpu.rates`), and the SASS split by pipe with the pipe
+    ceiling. The bound counts 8 bytes and the body's fewest instructions
+    per element per pass (`bench_builds.FEWEST`), so a body
+    that issues more instructions does not raise its own bound."""
     from keyhunt_tpu_torch.ops import u256, vpu
     from keyhunt_tpu_torch.tools import bench_vpu
+    from keyhunt_tpu_torch.tools.bench_builds import FEWEST
     B, R = VPU_B, bench_vpu.REPS
     x = u256.to_torch(bench_vpu.make_input(B), device)
     sass = vpu.sass_per_element()
+    pipes = _pipe_split("bench_vpu")
     stats = {}
     for body, (fn, plain, ops) in vpu.BODIES.items():
         name = "vpu_" + body.replace("-", "_")
@@ -591,9 +611,9 @@ def _vpu_kernels(device) -> dict:
             "max_abs_err": err, "shape": [B // 128, 128], "passes": R,
             "checksum": vpu.checksum(got), "source_ops_per_element": ops,
             **bench_vpu.rates(ops, B, R, ms, n),
-            "sass_opcodes": dict(sass[body].most_common(6)),
+            "sass_opcodes": dict(sass[body].most_common(6)), "pipes": pipes[name],
             "ms": ms, "plain_ms": median_ms(lambda: vpu.chained(plain, x, R), 3),
-            **_bound(8 * B * R, n * B * R)}
+            **_bound(8 * B * R, FEWEST[name] * B * R)}
         emit({"phase": "kernel", "name": name, **stats[name]})
     emit(_vpu_clock(device, sum(sass["independent"].values())))
     return stats

@@ -230,6 +230,37 @@ def count_sass(text: str) -> dict[str, collections.Counter]:
     return counts
 
 
+#: opcodes (their first word) of the two integer pipes of an SM
+#: sub-partition, each 16 lanes wide, so each takes a warp instruction every
+#: other clock: the ALU pipe, and the FMA-heavy pipe, which takes IMAD in
+#: all its forms (.IADD, .SHL, .HI, .MOV, .WIDE). VIADD, sm_90's add of an
+#: immediate, is counted on the ALU pipe: the hash kernels' timings fit
+#: that (PERF.md).
+ALU_OPCODES = frozenset({"IADD3", "VIADD", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "MOV",
+                         "SEL", "IMNMX", "IABS", "BMSK", "SGXT", "PLOP3"})
+FMA_OPCODES = frozenset({"IMAD"})
+
+
+def pipe_counts(counts: collections.Counter) -> dict[str, int]:
+    """`count_sass` opcode counts split by pipe: ALU, FMA-heavy, and other
+    (memory, control, uniform datapath), with their sum."""
+    out = {"alu": 0, "fma": 0, "other": 0}
+    for op, n in counts.items():
+        base = op.split(".")[0]
+        out["alu" if base in ALU_OPCODES else "fma" if base in FMA_OPCODES
+            else "other"] += n
+    out["instructions"] = sum(counts.values())
+    return out
+
+
+def pipe_ceiling(fewest: float, pipes: dict) -> float:
+    """The largest share of its bound a body can reach, given the
+    instructions it issues (`pipe_counts`): the bound charges `fewest`
+    instructions at one a clock, and the body needs at least one clock per
+    instruction and two per instruction of either pipe."""
+    return fewest / max(pipes["instructions"], 2 * pipes["alu"], 2 * pipes["fma"])
+
+
 def count_loop_sass(text: str) -> dict[str, collections.Counter]:
     """Opcode counts, as `count_sass` gives them, of the outermost loop of
     each kernel in a ``cuobjdump -sass`` listing: the instructions from the

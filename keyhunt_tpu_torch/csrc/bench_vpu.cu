@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bench_vpu.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -67,14 +69,7 @@ __global__ void vpu_rotate_mix_kernel(const uint32_t* __restrict__ in,
                                       uint32_t* __restrict__ out, int64_t n) {
     int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= n) return;
-    const uint32_t x = in[e];
-    uint32_t v = x;
-#pragma unroll
-    for (int i = 0; i < kNops / 5; ++i) {
-        uint32_t r = __funnelshift_l(v, v, 7);
-        v = (r + x) ^ x;
-    }
-    out[e] = v;
+    out[e] = kh_vpu::rotate_mix(in[e]);
 }
 
 inline unsigned blocks_for(int64_t n) {

@@ -12,19 +12,25 @@
 //
 // What bounds them on the H100: integer operations. Each element moves 32 B
 // in (64 B for K6) and 40 B out (20 B for K6), but K5 runs two SHA-256
-// compressions and two RIPEMD-160s, about 7,000 32-bit operations, so the
-// card's integer issue rate, not its memory, sets the floor. The design
-// spends nothing on memory beyond the operands: one thread per element
-// reads its 8 limbs (limb-major, so a warp's reads of one limb are 128
-// contiguous bytes), keeps the message block, the schedule window and both
-// hash states in registers through fully unrolled rounds (hash160.cuh),
-// uses funnel shifts for every rotation and the byte-pairing of the
-// message build and one byte permute per RIPEMD-160 byte swap, and writes
-// the five digest words coalesced. K5 builds its block once: the two
-// prefixes differ only in word 0, but the schedule diverges from w16 on,
-// so both compressions run in full. Any n is accepted: the last block
-// guards its tail (the TPU kernel wanted a multiple of 128 elements, and
-// keyhunt_tpu sent other batches to jnp).
+// compressions and two RIPEMD-160s, about 4,600 32-bit operations, so
+// memory is not the floor. Nor is the issue rate alone: the rounds are
+// rotations, 3-input logic and adds, which ptxas sends to the SM's ALU
+// pipe, and that pipe takes a warp instruction every other clock, so an
+// all-ALU body reaches half the issue rate at best. The hash core
+// (hash160.cuh) sends every add of two variables to the FMA-heavy pipe as
+// an IMAD (pipes.cuh), which leaves the ALU pipe the rotations, the logic
+// and the adds of constants: ~13% fewer ALU instructions, still the
+// busier of the two pipes. The design spends nothing on memory
+// beyond the operands: one thread per element reads its 8 limbs
+// (limb-major, so a warp's reads of one limb are 128 contiguous bytes),
+// keeps the message block, the schedule window and both hash states in
+// registers through fully unrolled rounds, and writes the five digest
+// words coalesced. 128 threads a block; at 2^18 elements the last of ~1.6
+// waves costs at most ~4% (timed at whole waves, PERF.md). K5 builds its
+// block once: the two prefixes differ only in word 0, but the schedule
+// diverges from w16 on, so both compressions run in full. Any n is
+// accepted: the last block guards its tail (the TPU kernel wanted a
+// multiple of 128 elements, and keyhunt_tpu sent other batches to jnp).
 #include <cuda_runtime.h>
 
 #include "hash160.cuh"

@@ -8,17 +8,29 @@
 // a 16-word rolling window (slot i & 15 holds w[i - 16] until round i
 // overwrites it with w[i]); the eight working variables and the two
 // RIPEMD-160 lines rotate through fixed slots instead of being moved.
-// Rotations are funnel shifts, the RIPEMD-160 byte swap is one byte
-// permute. Message layout follows keyhunt_tpu/ops/sha256.py:83-117.
+// Message layout follows keyhunt_tpu/ops/sha256.py:83-117.
+//
+// The rounds are rotations, 3-input logic and adds. ptxas puts all of
+// them on the ALU pipe (SHF, LOP3, IADD3, VIADD, LEA), so an all-ALU
+// round issues at half the SM's rate at best (pipes.cuh). Here every add
+// of two variables goes to the FMA-heavy pipe as one IMAD (kh_pipe::add):
+// the schedule's three, h + K + w with Ch and Sigma1, Sigma0 + Maj, the
+// new e and the new a; in RIPEMD-160, a + x and the add of f. Left on the
+// ALU pipe: SHF for the rotations and shifts, LOP3 for Ch, Maj, the xor
+// trees and the RIPEMD-160 functions, PRMT for the byte swap, LEA.HI for
+// RIPEMD-160's rotl(t, s) + e, and VIADD for the adds of a constant (K, a
+// padding word), whose IMAD forms timed slower (pipes.cuh). Operands that
+// are compile-time constants (a block's padding words and the schedule
+// words made only of them, the IV in the first rounds) keep the plain
+// forms, so the compiler still folds them: an IMAD hides its operands'
+// values from ptxas.
 #pragma once
 
 #include <stdint.h>
 
 #include <utility>
 
-#ifndef KH_INLINE
-#define KH_INLINE __device__ __forceinline__
-#endif
+#include "pipes.cuh"
 
 namespace kh_hash {
 
@@ -48,30 +60,63 @@ __host__ __device__ constexpr uint32_t sha_k(int i) {
     return k[i];
 }
 
+// Bit j set: schedule word w[j] of a block is a compile-time constant,
+// given the mask of the 16 message words that are.
+__host__ __device__ constexpr uint64_t sha_const_words(uint32_t message) {
+    uint64_t m = message & 0xffffu;
+    for (int j = 16; j < 64; ++j) {
+        const uint64_t need = (1ull << (j - 16)) | (1ull << (j - 15)) |
+                              (1ull << (j - 7)) | (1ull << (j - 2));
+        if ((m & need) == need) m |= 1ull << j;
+    }
+    return m;
+}
+
+__host__ __device__ constexpr bool is_var(uint64_t const_words, int j) {
+    return !((const_words >> j) & 1);
+}
+
+// a + b: an IMAD if Fma (both vary), else a plain add, which the compiler
+// folds or gives an immediate
+template <bool Fma>
+KH_INLINE uint32_t add(uint32_t a, uint32_t b) {
+    if constexpr (Fma) return kh_pipe::add(a, b);
+    else return a + b;
+}
+
+KH_INLINE uint32_t sigma0(uint32_t x) { return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3); }
+KH_INLINE uint32_t sigma1(uint32_t x) { return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10); }
+
 // Round I on working variables s (a..h at slots (k - I) & 7) and the
-// rolling schedule window w.
-template <int I>
+// rolling schedule window w. CW: the block's constant schedule words
+// (`sha_const_words`); IV: s holds the initial hash value (first block),
+// so in round 0 a..h are constants, and d and h stay the IV's to round 3.
+template <int I, uint64_t CW, bool IV>
 KH_INLINE void sha_round(uint32_t (&s)[8], uint32_t (&w)[16]) {
     if constexpr (I >= 16) {
-        const uint32_t w15 = w[(I + 1) & 15], w2 = w[(I + 14) & 15];
-        w[I & 15] += (rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3)) + w[(I + 9) & 15] +
-                     (rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10));
+        constexpr bool v16 = is_var(CW, I - 16), v15 = is_var(CW, I - 15);
+        constexpr bool v7 = is_var(CW, I - 7), v2 = is_var(CW, I - 2);
+        w[I & 15] = add<(v16 || v7) && (v15 || v2)>(
+            add<v16 && v7>(w[I & 15], w[(I + 9) & 15]),
+            add<v15 && v2>(sigma0(w[(I + 1) & 15]), sigma1(w[(I + 14) & 15])));
     }
     constexpr int A = (64 - I) & 7, B = (65 - I) & 7, C = (66 - I) & 7, D = (67 - I) & 7;
     constexpr int E = (68 - I) & 7, F = (69 - I) & 7, G = (70 - I) & 7, H = (71 - I) & 7;
+    constexpr bool vs = !(IV && I == 0), vdh = !(IV && I < 4), vw = is_var(CW, I);
     const uint32_t e = s[E], a = s[A];
-    const uint32_t t1 = s[H] + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) +
-                        ((e & s[F]) ^ (~e & s[G])) + sha_k(I) + w[I & 15];
-    const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) +
-                        ((a & s[B]) ^ (a & s[C]) ^ (s[B] & s[C]));
-    s[D] += t1;          // the new e
-    s[H] = t1 + t2;      // the new a
+    const uint32_t hkw = add<vdh && vw>(s[H] + sha_k(I), w[I & 15]);
+    const uint32_t t1 = add<vs>(add<vs>(hkw, (e & s[F]) ^ (~e & s[G])),
+                                rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25));
+    const uint32_t t2 = add<vs>(rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22),
+                                (a & s[B]) ^ (a & s[C]) ^ (s[B] & s[C]));
+    s[D] = add<vdh>(s[D], t1);         // the new e
+    s[H] = add<vs>(t1, t2);            // the new a
 }
 
-template <int... I>
+template <uint64_t CW, bool IV, int... I>
 KH_INLINE void sha_rounds(uint32_t (&s)[8], uint32_t (&w)[16],
                           std::integer_sequence<int, I...>) {
-    (sha_round<I>(s, w), ...);
+    (sha_round<I, CW, IV>(s, w), ...);
 }
 
 KH_INLINE void sha256_init(uint32_t (&st)[8]) {
@@ -80,11 +125,15 @@ KH_INLINE void sha256_init(uint32_t (&st)[8]) {
 }
 
 // One compression of block w (consumed: the window is overwritten).
+// ConstWords: mask of the message words that are compile-time constants;
+// IV: st is the initial hash value.
+template <uint32_t ConstWords, bool IV>
 KH_INLINE void sha256_compress(uint32_t (&st)[8], uint32_t (&w)[16]) {
     uint32_t s[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] = st[i];
-    sha_rounds(s, w, std::make_integer_sequence<int, 64>{});
+    sha_rounds<sha_const_words(ConstWords), IV>(s, w,
+                                                std::make_integer_sequence<int, 64>{});
 #pragma unroll
     for (int i = 0; i < 8; ++i) st[i] += s[i];      // 64 rounds: slots are home
 }
@@ -152,18 +201,25 @@ KH_INLINE uint32_t rmd_f(uint32_t x, uint32_t y, uint32_t z) {
     else return x ^ (y | ~z);
 }
 
-// Round J of both lines. Line state a..e sits at slots (k - J) mod 5: the
-// new b (t) overwrites the old a's slot, c is rotated in place.
+// Round J of one line. Line state a..e sits at slots (k - J) mod 5: the
+// new b (t) overwrites the old a's slot, c is rotated in place. a holds
+// the IV's word to round 4, f is a constant in round 0 and message words
+// 8-15 are padding; rotl(t, s) + e stays one LEA.HI.
+template <int J, int XI>
+KH_INLINE void rmd_line(uint32_t (&l)[5], uint32_t f, const uint32_t (&x)[16],
+                        uint32_t k, int s) {
+    constexpr int A = (80 - J) % 5, C = (82 - J) % 5, E = (84 - J) % 5;
+    constexpr bool va = J >= 5, vx = XI < 8;
+    const uint32_t t = add<va && vx>(l[A], x[XI]) + k;
+    l[A] = rotl(add<(J > 0 && (va || vx))>(f, t), s) + l[E];
+    l[C] = rotl(l[C], 10);
+}
+
 template <int J>
 KH_INLINE void rmd_round(uint32_t (&l)[5], uint32_t (&r)[5], const uint32_t (&x)[16]) {
-    constexpr int A = (80 - J) % 5, B = (81 - J) % 5, C = (82 - J) % 5;
-    constexpr int D = (83 - J) % 5, E = (84 - J) % 5;
-    l[A] = rotl(l[A] + rmd_f<J>(l[B], l[C], l[D]) + x[rmd_rl(J)] + rmd_kl(J),
-                rmd_sl(J)) + l[E];
-    l[C] = rotl(l[C], 10);
-    r[A] = rotl(r[A] + rmd_f<79 - J>(r[B], r[C], r[D]) + x[rmd_rr(J)] + rmd_kr(J),
-                rmd_sr(J)) + r[E];
-    r[C] = rotl(r[C], 10);
+    constexpr int B = (81 - J) % 5, C = (82 - J) % 5, D = (83 - J) % 5;
+    rmd_line<J, rmd_rl(J)>(l, rmd_f<J>(l[B], l[C], l[D]), x, rmd_kl(J), rmd_sl(J));
+    rmd_line<J, rmd_rr(J)>(r, rmd_f<79 - J>(r[B], r[C], r[D]), x, rmd_kr(J), rmd_sr(J));
 }
 
 template <int... J>
@@ -219,7 +275,7 @@ KH_INLINE void hash160_block(const uint32_t (&blk)[16], uint32_t (&out)[5]) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) w[i] = blk[i];
     sha256_init(st);
-    sha256_compress(st, w);
+    sha256_compress<0xfe00u, true>(st, w);       // words 9-15: padding
     ripemd160_32(st, out);
 }
 
@@ -234,12 +290,12 @@ KH_INLINE void hash160_uncompressed(const uint32_t (&sx)[8], const uint32_t (&sy
 #pragma unroll
     for (int i = 1; i < 8; ++i) w[8 + i] = shr8(sy[i - 1], sy[i]);
     sha256_init(st);
-    sha256_compress(st, w);
+    sha256_compress<0u, true>(st, w);
     w[0] = (sy[7] << 24) | 0x00800000u;
 #pragma unroll
     for (int i = 1; i < 15; ++i) w[i] = 0;
     w[15] = 65 * 8;
-    sha256_compress(st, w);
+    sha256_compress<0xfffeu, false>(st, w);      // words 1-15: padding
     ripemd160_32(st, out);
 }
 

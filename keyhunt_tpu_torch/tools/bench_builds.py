@@ -1,27 +1,31 @@
-"""Time kernels K1-K4 of other source trees beside this package's, on the card.
+"""Time the port's kernels of other source trees beside this package's, on the card.
 
-Builds ``field_kernels.cu`` and ``jacwalk.cu`` from this package's ``csrc/``
-(labelled "this") and from each ``--other NAME=DIR`` -- another directory
-with the same C entry points, such as an earlier commit's
+Builds the sources of the chosen kernels (``field_kernels.cu``,
+``jacwalk.cu``, ``hash160.cu``, ``bench_vpu.cu``) from this package's
+``csrc/`` (labelled "this") and from each ``--other NAME=DIR`` -- another
+directory with the same C entry points, such as an earlier commit's
 ``keyhunt_tpu_torch/csrc`` unpacked with ``git archive`` into the
 git-ignored ``build/`` -- all builds of a source in parallel. Per build it
-prints each kernel's registers and spills (``-Xptxas -v``) and K4's static
+prints each kernel's registers and spills (``-Xptxas -v``), K4's static
 SASS instructions (``cuobjdump -sass``): the whole kernel, and its step
-loop with the loop's commonest opcodes. Then, for ``--turns`` turns, each
-case runs every build, in an order that reverses from case to case: K1
-field_mul, K2 field_sqr and K3 batch_inv at each of ``--widths``, K4
-giant_scan at ``--lanes`` x ``--steps`` with lanes 0 and 1 planted at C and
--C (`planted_input`). Each build is held exactly against the plain version
-after `norm` and timed with the host's issue hidden
-(`sweep_batch_inv.device_ms`), rotating through enough operand sets that
-the timed calls move more than `L2_ROTATE_BYTES`, twice the H100's 50 MB
-L2, where one call moves less. One JSON line per build, then one per turn,
-case and build.
+loop with the loop's commonest opcodes; and for K5, K6 and T1's three
+bodies the SASS instructions per element split by pipe (ALU, FMA-heavy,
+other: `_build.pipe_counts`) with the pipe ceiling (`_build.pipe_ceiling`
+of `FEWEST`). Then, for ``--turns`` turns, each case runs every build, in
+an order that reverses from case to case: K1 field_mul, K2 field_sqr and
+K3 batch_inv, K5 hash160_both and K6 hash160_uncompressed at their path
+widths (or ``--widths``), T1's bodies (one pass each) at 2^22, K4
+giant_scan at ``--lanes`` x ``--steps`` with lanes 0 and 1 planted at C
+and -C (`planted_input`). Each build is held exactly against the plain
+version (field elements after `norm`) and timed with the host's issue
+hidden (`sweep_batch_inv.device_ms`), rotating through enough operand sets
+that the timed calls move more than `L2_ROTATE_BYTES`, twice the H100's
+50 MB L2, where one call moves less. One JSON line per build, then one
+per turn, case and build.
 
     python -m keyhunt_tpu_torch.tools.bench_builds --other NAME=DIR ...
-        [--kernels field_mul field_sqr batch_inv giant_scan]
-        [--widths 64 512 131072 131136 262144 2097152]
-        [--lanes 131072] [--steps 16] [--turns 3] [--calls 20]
+        [--kernels field_mul ... hash160_both ... vpu_rotate_mix]
+        [--widths N ...] [--lanes 131072] [--steps 16] [--turns 3] [--calls 20]
 """
 
 from __future__ import annotations
@@ -36,18 +40,40 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..ops import field, jacwalk, u256
+from ..ops import field, jacwalk, u256, vpu
+from ..ops import hash160 as h160
 from ..ref import ecc
 from .sweep_batch_inv import device_ms
 
 #: kernel -> the source that holds it
 KERNELS = {"field_mul": "field_kernels.cu", "field_sqr": "field_kernels.cu",
-           "batch_inv": "field_kernels.cu", "giant_scan": "jacwalk.cu"}
-#: the widths at which the BSGS, walker and minikeys paths launch K1-K3
+           "batch_inv": "field_kernels.cu", "giant_scan": "jacwalk.cu",
+           "hash160_both": "hash160.cu", "hash160_uncompressed": "hash160.cu",
+           "vpu_independent": "bench_vpu.cu", "vpu_dependent": "bench_vpu.cu",
+           "vpu_rotate_mix": "bench_vpu.cu"}
+FIELD = ("field_mul", "field_sqr", "batch_inv")
+#: the widths at which the BSGS, walker and minikeys paths launch K1-K3,
+#: K5 and K6 (all but K4), and T1's one width
 WIDTHS = (64, 512, 131072, 131136, 1 << 18, 1 << 21)
+_VPU = {f"vpu_{b.replace('-', '_')}": plain for b, (_, plain, _) in vpu.BODIES.items()}
+PATH_WIDTHS = {**dict.fromkeys(FIELD, WIDTHS), "hash160_both": (1 << 18,),
+               "hash160_uncompressed": (512, 1 << 18), **dict.fromkeys(_VPU, (1 << 22,))}
 L2_ROTATE_BYTES = 100 * 10**6
 PLAIN = {"field_mul": field.mul_plain, "field_sqr": field.sqr_plain,
-         "batch_inv": field.batch_inv_plain, "giant_scan": jacwalk.giant_scan_plain}
+         "batch_inv": field.batch_inv_plain, "giant_scan": jacwalk.giant_scan_plain,
+         "hash160_both": h160.hash160_both_plain,
+         "hash160_uncompressed": h160.hash160_uncompressed_plain, **_VPU}
+#: the fewest instructions per element of the kernels whose pipe split is
+#: reported, the bound's count (chip_smoke.py `_bound`): a SHA-256
+#: compression 48 schedule words of 10 and 64 rounds of 13, plus 8;
+#: RIPEMD-160 of 32 bytes 160 line-rounds of 6 plus the byte swaps and the
+#: final adds, 973; T1's bodies per pass, as their first CUDA build issued
+#: them (the rotate mix's 102 rounds as LEA.HI + LOP3), so a body that
+#: issues more does not raise its own bound
+SHA256_OPS, RIPEMD160_OPS = 1320, 973
+FEWEST = {"hash160_both": 2 * (SHA256_OPS + RIPEMD160_OPS),
+          "hash160_uncompressed": 2 * SHA256_OPS + RIPEMD160_OPS,
+          "vpu_independent": 473, "vpu_dependent": 534, "vpu_rotate_mix": 226}
 
 
 def rotation(nbytes: int) -> int:
@@ -76,7 +102,8 @@ def planted_input(L: int, S: int, device, m: int = 1 << 26):
 def giant_scan_stats(ptxas: str, listing: str) -> dict:
     """K4's registers and spills, its static SASS instructions, and those
     of its step loop (`_build.count_loop_sass`) with the loop's commonest
-    opcodes, from nvcc's ptxas report and the library's SASS listing."""
+    opcodes and its split by pipe (`_build.pipe_counts`), from nvcc's
+    ptxas report and the library's SASS listing."""
     def pick(table):
         return next(v for fn, v in table.items() if "giant_scan_kernel" in fn)
     step = pick(_build.count_loop_sass(listing))
@@ -85,7 +112,22 @@ def giant_scan_stats(ptxas: str, listing: str) -> dict:
     return {**pick(_build.ptxas_usage(ptxas)),
             "sass": sum(pick(_build.count_sass(listing)).values()),
             "sass_step": sum(step.values()),
-            "sass_step_opcodes": dict(step.most_common(8))}
+            "sass_step_opcodes": dict(step.most_common(8)),
+            "step_pipes": _build.pipe_counts(step)}
+
+
+def pipe_stats(listing: str) -> dict[str, dict]:
+    """Per kernel of `FEWEST` in a library's SASS listing: its instructions
+    per element by pipe (`_build.pipe_counts`), its pipe ceiling and its
+    commonest opcodes."""
+    out = {}
+    for fn, counts in _build.count_sass(listing).items():
+        kern = next((k for k in FEWEST if f"{k}_kernel" in fn), None)
+        if kern:
+            pipes = _build.pipe_counts(counts)
+            out[kern] = {**pipes, "pipe_ceiling": _build.pipe_ceiling(FEWEST[kern], pipes),
+                         "opcodes": dict(counts.most_common(8))}
+    return out
 
 
 def launch(lib, kern: str, ops: tuple) -> tuple:
@@ -103,6 +145,15 @@ def launch(lib, kern: str, ops: tuple) -> tuple:
         rc = lib.kh_giant_scan(X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
                                *(o.data_ptr() for o in outs), L, S,
                                consts.ctypes.data, stream)
+    elif kern.startswith("vpu_"):
+        outs = [torch.empty_like(ops[0])]
+        rc = getattr(lib, f"kh_{kern}")(ops[0].data_ptr(), outs[0].data_ptr(),
+                                        ops[0].numel(), stream)
+    elif kern.startswith("hash160_"):
+        n = ops[0].shape[1]
+        outs = [torch.empty((5, n), dtype=torch.int32, device=ops[0].device)
+                for _ in range(2 if kern == "hash160_both" else 1)]
+        rc = getattr(lib, f"kh_{kern}")(*(t.data_ptr() for t in (*ops, *outs)), n, stream)
     else:
         n = ops[0].shape[1]
         outs = [torch.empty_like(ops[0])]
@@ -120,10 +171,10 @@ def launch(lib, kern: str, ops: tuple) -> tuple:
 
 def exact(kern: str, got: tuple, want: tuple) -> bool:
     """Every output equal to the plain version's, on the host: field
-    elements after `norm`, K4's degeneracy flags (its last output) as
-    they are."""
+    elements after `norm`; K4's degeneracy flags (its last output), hash
+    words and T1's words as they are."""
     for k, (g, w) in enumerate(zip(got, want, strict=True)):
-        if not (kern == "giant_scan" and k == len(got) - 1):
+        if kern in FIELD or (kern == "giant_scan" and k < len(got) - 1):
             g, w = field.norm(g), field.norm(w)
         if not torch.equal(g.cpu(), w.cpu()):
             return False
@@ -135,7 +186,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--other", nargs="+", required=True,
                     help="NAME=DIR: build DIR's sources as NAME")
     ap.add_argument("--kernels", nargs="+", choices=list(KERNELS), default=list(KERNELS))
-    ap.add_argument("--widths", nargs="+", type=int, default=list(WIDTHS))
+    ap.add_argument("--widths", nargs="+", type=int,
+                    help="widths of every kernel but K4 (default: its PATH_WIDTHS)")
     ap.add_argument("--lanes", type=int, default=131072)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--turns", type=int, default=3)
@@ -154,11 +206,15 @@ def main(argv: list[str] | None = None) -> int:
         for label, (lib, so, out) in built.items():
             libs[label][src] = lib
             for fn, usage in _build.ptxas_usage(out).items():
-                kn = re.search(r"(field_mul|field_sqr|binv_\w+?|giant_scan)_kernel", fn)
+                kn = re.search(r"(field_mul|field_sqr|binv_\w+?|giant_scan|hash160_\w+?|"
+                               r"vpu_\w+?)_kernel", fn)
                 if kn:
                     info[label]["registers"][kn.group(1)] = usage
             if src == "jacwalk.cu":
                 info[label]["giant_scan"] = giant_scan_stats(out, _build.sass_listing(so))
+            if src in ("hash160.cu", "bench_vpu.cu"):
+                info[label].setdefault("pipes", {}).update(
+                    pipe_stats(_build.sass_listing(so)))
     for line in info.values():
         print(json.dumps(line), flush=True)
 
@@ -167,12 +223,15 @@ def main(argv: list[str] | None = None) -> int:
     def operands(kern, n):
         if kern == "giant_scan":
             return planted_input(*n, dev)
+        if kern.startswith("vpu_"):
+            return (u256.to_torch(rng.integers(0, 1 << 32, size=n, dtype=np.uint32), dev),)
         limbs = [u256.to_torch(rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint32), dev)
-                 for _ in range(2 if kern == "field_mul" else 1)]
+                 for _ in range(2 if kern in ("field_mul", "hash160_uncompressed") else 1)]
         return (field.norm(limbs[0]),) if kern == "batch_inv" else tuple(limbs)
 
     cases = [(k, (args.lanes, args.steps)) for k in args.kernels if k == "giant_scan"]
-    cases += [(k, n) for n in args.widths for k in args.kernels if k != "giant_scan"]
+    cases += [(k, n) for k in args.kernels if k != "giant_scan"
+              for n in args.widths or PATH_WIDTHS[k]]
     filler = torch.zeros(1 << 24, dtype=torch.int32, device=dev)
     labels = list(dirs)
     for turn in range(args.turns):

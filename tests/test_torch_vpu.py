@@ -187,3 +187,32 @@ def test_count_loop_sass_counts_the_outermost_loop_body():
         "_ZN12_GLOBAL__N_117giant_scan_kernelEv": {
             "IMAD.WIDE.U32": 1, "IADD3": 1, "BRA": 2, "IMAD.WIDE.U32.X": 1},
         "_ZN12_GLOBAL__N_110flat_kernelEv": {}}
+
+
+_PIPE_LISTING = """
+		Function : _ZN12_GLOBAL__N_121hash160_both_kernelEv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.CONSTANT R3, desc[UR4][R4.64] ;
+        /*0020*/                   SHF.R.W.U32 R6, R3, 0x7, R3 ;
+        /*0030*/                   LOP3.LUT R8, R6, R3, RZ, 0x3c, !PT ;
+        /*0040*/                   IMAD R7, R8, UR6, R3 ;
+        /*0050*/                   IMAD.HI.U32 R6, R8, UR6, R6 ;
+        /*0060*/                   VIADD R9, R7, 0x428a2f98 ;
+        /*0070*/               @P0 IADD3 R9, R9, R6, RZ ;
+        /*0080*/                   IMAD.IADD R9, R9, 0x1, R8 ;
+        /*0090*/                   STG.E desc[UR4][R4.64], R9 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0;
+"""
+
+
+def test_pipe_counts_split_a_listing_by_pipe():
+    """The SASS of a kernel split by pipe: SHF, LOP3, VIADD and IADD3 on
+    the ALU pipe (a predicate does not change the opcode), every IMAD form
+    on the FMA-heavy pipe, loads, stores and control elsewhere; the pipe
+    ceiling charges two clocks per instruction of the busier pipe."""
+    (counts,) = _build.count_sass(_PIPE_LISTING).values()
+    pipes = _build.pipe_counts(counts)
+    assert pipes == {"alu": 4, "fma": 3, "other": 4, "instructions": 11}
+    assert _build.pipe_ceiling(6, pipes) == 6 / 11
+    assert _build.pipe_ceiling(6, {**pipes, "alu": 8}) == 6 / 16
