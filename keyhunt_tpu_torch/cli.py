@@ -274,6 +274,7 @@ def main(argv=None) -> int:
 
 def run_walker_cli(args, device) -> int:
     """The brute-force modes: load targets, build the walker, run."""
+    from . import trace
     from .io import targets as tio
     from .search.engine import Engine
     from .search.walker import WalkerConfig
@@ -312,7 +313,12 @@ def run_walker_cli(args, device) -> int:
     eng = Engine(cfg, ts, start, end, random_mode=args.random,
                  quiet=args.quiet, stats_every=args.stats, matrix=args.matrix,
                  n_seq=resolve_nseq(args), device=device, devices=devices)
+    spans = trace.totals()
     eng.run(max_seconds=args.max_seconds)
+    if not args.quiet:
+        print("[+] walker " + trace.stage_line(
+            "walker", ("seed", "dispatch", "fetch", "decode", "rerun"), spans),
+            flush=True)
     print(f"[+] done: {len(eng.found_keys)} key(s) found", flush=True)
     return 0
 

@@ -90,11 +90,12 @@ class BabyTable:
         cached = getattr(self, "_packed", None)
         if cached is not None and cached[0] == avg:
             return cached[1]
-        trip = self._load_packed_sidecar(avg)
-        if trip is None:
-            trip = match.build_buckets_packed(np.asarray(self.t0),
-                                              np.asarray(self.t1), avg=avg)
-            self._save_packed_sidecar(avg, trip)
+        with span("table.pack"):
+            trip = self._load_packed_sidecar(avg)
+            if trip is None:
+                trip = match.build_buckets_packed(np.asarray(self.t0),
+                                                  np.asarray(self.t1), avg=avg)
+                self._save_packed_sidecar(avg, trip)
         self._packed = (avg, trip)
         return trip
 
@@ -104,7 +105,8 @@ class BabyTable:
         cache = self.__dict__.setdefault("_dev_packed", {})
         if device not in cache:
             slab, starts, shift = self.packed()
-            cache[device] = (to_device(np.asarray(slab), device), starts, shift)
+            with span("table.upload"):
+                cache[device] = (to_device(np.asarray(slab), device), starts, shift)
         return cache[device]
 
     def pos_to_j(self, pos: int) -> int | None:
@@ -218,41 +220,42 @@ def build_baby_table(m: int, pivots: int = 64, width: int = 2048,
     a GPU) in batches of A*W*S keys (A is capped so one batch does not
     overshoot m by more than a pivot's worth). The argsort uses the native
     radix sort when the host library is built."""
-    device = resolve_device(device)
-    W, S = width, steps
-    frags0 = np.zeros((2, m), dtype=np.uint32)
-    host_n = min(W + 1, m)
-    hx, _ = curve.offset_table(max(host_n, 2))
-    frags0[0, :host_n] = hx[7, :host_n]
-    frags0[1, :host_n] = hx[6, :host_n]
-    if m > host_n:
-        A = max(1, min(pivots, -(-(m - host_n) // (W * S))))
-        run = _builder_step(A, W, S, device)
-        k0 = host_n                      # device covers [k0+1, ...]
-        x, y = curve.points_for_keys([k0 + a * W for a in range(A)])
-        px, py = u256.to_torch(x, device), u256.to_torch(y, device)
-        pos = host_n
-        span = A * W * S
-        while pos < m:
-            px, py, frags = run(px, py)
-            take = min(span, m - pos)
-            frags0[:, pos:pos + take] = u256.to_numpy(frags[:, :take])
-            pos += take
+    with span("table.build"):
+        device = resolve_device(device)
+        W, S = width, steps
+        frags0 = np.zeros((2, m), dtype=np.uint32)
+        host_n = min(W + 1, m)
+        hx, _ = curve.offset_table(max(host_n, 2))
+        frags0[0, :host_n] = hx[7, :host_n]
+        frags0[1, :host_n] = hx[6, :host_n]
+        if m > host_n:
+            A = max(1, min(pivots, -(-(m - host_n) // (W * S))))
+            run = _builder_step(A, W, S, device)
+            k0 = host_n                      # device covers [k0+1, ...]
+            x, y = curve.points_for_keys([k0 + a * W for a in range(A)])
+            px, py = u256.to_torch(x, device), u256.to_torch(y, device)
+            pos = host_n
+            batch = A * W * S
+            while pos < m:
+                px, py, frags = run(px, py)
+                take = min(batch, m - pos)
+                frags0[:, pos:pos + take] = u256.to_numpy(frags[:, :take])
+                pos += take
+                if progress:
+                    print(f"\r[+] baby table {pos}/{m}", end="", flush=True)
             if progress:
-                print(f"\r[+] baby table {pos}/{m}", end="", flush=True)
-        if progress:
-            print(flush=True)
-    packed = (frags0[0].astype(np.uint64) << 32) | frags0[1].astype(np.uint64)
-    if native.available():
-        perm = native.radix_argsort_u64(packed)
-    else:
-        perm = np.argsort(packed, kind="stable").astype(np.uint32)
-    spacked = packed[perm]
-    return BabyTable(m=m,
-                     t0=(spacked >> 32).astype(np.uint32),
-                     t1=(spacked & 0xFFFFFFFF).astype(np.uint32),
-                     perm=perm,
-                     depth=depth if depth is not None else default_depth(m))
+                print(flush=True)
+        packed = (frags0[0].astype(np.uint64) << 32) | frags0[1].astype(np.uint64)
+        if native.available():
+            perm = native.radix_argsort_u64(packed)
+        else:
+            perm = np.argsort(packed, kind="stable").astype(np.uint32)
+        spacked = packed[perm]
+        return BabyTable(m=m,
+                         t0=(spacked >> 32).astype(np.uint32),
+                         t1=(spacked & 0xFFFFFFFF).astype(np.uint32),
+                         perm=perm,
+                         depth=depth if depth is not None else default_depth(m))
 
 
 # -- persistence: the same .npz and .d formats and file names as
@@ -279,22 +282,29 @@ def _norm_table_path(path: str) -> str:
 
 
 def _file_sha256(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as fh:
-        for chunk in iter(lambda: fh.read(1 << 24), b""):
-            h.update(chunk)
-    return h.hexdigest()
+    with span("table.checksum"):
+        h = hashlib.sha256()
+        with open(path, "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 24), b""):
+                h.update(chunk)
+        return h.hexdigest()
+
+
+def _arrays_sha256(tbl: BabyTable) -> bytes:
+    """The .npz format's checksum: sha256 of t0, t1 and perm's bytes."""
+    with span("table.checksum"):
+        blob = tbl.t0.tobytes() + tbl.t1.tobytes() + tbl.perm.tobytes()
+        return hashlib.sha256(blob).digest()
 
 
 def save_table(tbl: BabyTable, directory: str = ".", path: str | None = None) -> str:
-    path = _norm_table_path(path or table_path(tbl.m, directory))
-    if _is_dir_format(path):
-        return _save_table_dir(tbl, path)
-    blob = tbl.t0.tobytes() + tbl.t1.tobytes() + tbl.perm.tobytes()
-    checksum = hashlib.sha256(blob).hexdigest()
-    np.savez(path, m=tbl.m, t0=tbl.t0, t1=tbl.t1, perm=tbl.perm,
-             sha256=np.frombuffer(bytes.fromhex(checksum), dtype=np.uint8))
-    return path
+    with span("table.save"):
+        path = _norm_table_path(path or table_path(tbl.m, directory))
+        if _is_dir_format(path):
+            return _save_table_dir(tbl, path)
+        np.savez(path, m=tbl.m, t0=tbl.t0, t1=tbl.t1, perm=tbl.perm,
+                 sha256=np.frombuffer(_arrays_sha256(tbl), dtype=np.uint8))
+        return path
 
 
 def _save_table_dir(tbl: BabyTable, dirpath: str) -> str:
@@ -313,22 +323,21 @@ def _save_table_dir(tbl: BabyTable, dirpath: str) -> str:
 
 def load_table(m: int, directory: str = ".", verify: bool = True,
                path: str | None = None, mmap: bool = True) -> BabyTable | None:
-    path = _norm_table_path(path or table_path(m, directory))
-    if _is_dir_format(path):
-        return _load_table_dir(m, path, verify=verify, mmap=mmap)
-    if not os.path.exists(path):
-        return None
-    data = np.load(path)
-    if int(data["m"]) != m:
-        raise ValueError(f"{path} holds a table for m={int(data['m']):#x}, "
-                         f"wanted m={m:#x}")
-    tbl = BabyTable(m=m, t0=data["t0"], t1=data["t1"], perm=data["perm"],
-                    depth=default_depth(m))
-    if verify:
-        blob = tbl.t0.tobytes() + tbl.t1.tobytes() + tbl.perm.tobytes()
-        if hashlib.sha256(blob).digest() != bytes(data["sha256"].tobytes()):
+    with span("table.load"):
+        path = _norm_table_path(path or table_path(m, directory))
+        if _is_dir_format(path):
+            return _load_table_dir(m, path, verify=verify, mmap=mmap)
+        if not os.path.exists(path):
+            return None
+        data = np.load(path)
+        if int(data["m"]) != m:
+            raise ValueError(f"{path} holds a table for m={int(data['m']):#x}, "
+                             f"wanted m={m:#x}")
+        tbl = BabyTable(m=m, t0=data["t0"], t1=data["t1"], perm=data["perm"],
+                        depth=default_depth(m))
+        if verify and _arrays_sha256(tbl) != bytes(data["sha256"].tobytes()):
             raise ValueError(f"checksum mismatch in {path}")
-    return tbl
+        return tbl
 
 
 def _load_table_dir(m: int, dirpath: str, verify: bool = True,
@@ -531,7 +540,10 @@ class BsgsEngine:
     per target and holds 1/D of the table (keyhunt_tpu's `devices`).
     Counts what it did: `dispatches`, `giant_points`, `probe_hits`,
     `false_hits` (probe hits that verified no key) and `run_seconds` (the
-    last `run()`'s wall time, drains included)."""
+    last `run()`'s wall time, drains included). Its host stages run in
+    `trace.span`s: bsgs.run, .seed, .dispatch (around the step's spans),
+    .fetch, .drain_wait (the wait on the device alone), .decode, .rerun
+    and .dropout."""
 
     #: in-flight dispatches before the oldest payload is drained
     PIPELINE = 3
@@ -692,27 +704,30 @@ class BsgsEngine:
         self._wide_fns = {}     # (K, D) -> step fn of a block re-run
 
     def _dispatch(self, state):
-        if self.mesh:
-            *state, payload = self.step_fn(*state)
-            return tuple(state), payload
-        Xo, Yo, Zo, payload = self.step_fn(*state, self._slab, self._base)
-        return (Xo, Yo, Zo), payload
+        with span("bsgs.dispatch"):
+            if self.mesh:
+                *state, payload = self.step_fn(*state)
+                return tuple(state), payload
+            Xo, Yo, Zo, payload = self.step_fn(*state, self._slab, self._base)
+            return (Xo, Yo, Zo), payload
 
     def _fetch_async(self, payload: torch.Tensor):
         """Start the payload's device->host copy without waiting (pinned
         buffer + event); `_drain` waits on the event."""
         if payload.device.type != "cuda":
             return payload, None
-        host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
-        host.copy_(payload, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(payload.device))
-        return host, ev
+        with span("bsgs.fetch"):
+            host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+            host.copy_(payload, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(payload.device))
+            return host, ev
 
     def _drain(self, c0, fetched):
         host, ev = fetched
         if ev is not None:
-            ev.synchronize()
+            with span("bsgs.drain_wait"):
+                ev.synchronize()
         arr = host.numpy()
         K = self.cfg.max_hits
         counts = self.probe_hits, self.false_hits
@@ -727,21 +742,22 @@ class BsgsEngine:
         (K rounded up to a power of two) and, when a step's degenerate-lane
         row was full, a flag slot for every lane; every hit is decoded.
         `_record` drops the keys the first pass already recorded."""
-        K = max(self.cfg.max_hits, 1 << (nhits - 1).bit_length())
-        D = len(self.targets) * self.cfg.lanes if flags_full else DEGEN_SLOTS
-        print(f"[+] BSGS hit buffer saturated at c0={c0:#x} ({nhits} hits, "
-              f"{self.cfg.max_hits} slots"
-              f"{', a full degenerate-lane row' if flags_full else ''}): "
-              f"block re-run with {K} hit slots", flush=True)
-        if (K, D) not in self._wide_fns:
-            self._wide_fns[K, D] = self._make_step(
-                dataclasses.replace(self.cfg, max_hits=K), degen_slots=D)
-        if self.mesh:
-            payload = self._wide_fns[K, D](*self._seed(c0))[3]
-        else:
-            payload = self._wide_fns[K, D](*self._seed(c0), self._slab,
-                                           self._base)[3]
-        self._decode(c0, payload.cpu().numpy(), K, D)
+        with span("bsgs.rerun"):
+            K = max(self.cfg.max_hits, 1 << (nhits - 1).bit_length())
+            D = len(self.targets) * self.cfg.lanes if flags_full else DEGEN_SLOTS
+            print(f"[+] BSGS hit buffer saturated at c0={c0:#x} ({nhits} hits, "
+                  f"{self.cfg.max_hits} slots"
+                  f"{', a full degenerate-lane row' if flags_full else ''}): "
+                  f"block re-run with {K} hit slots", flush=True)
+            if (K, D) not in self._wide_fns:
+                self._wide_fns[K, D] = self._make_step(
+                    dataclasses.replace(self.cfg, max_hits=K), degen_slots=D)
+            if self.mesh:
+                payload = self._wide_fns[K, D](*self._seed(c0))[3]
+            else:
+                payload = self._wide_fns[K, D](*self._seed(c0), self._slab,
+                                               self._base)[3]
+            self._decode(c0, payload.cpu().numpy(), K, D)
 
     def _lane_offsets(self):
         """l * (2m) * G for l < D*lanes (Python seeding path only)."""
@@ -761,18 +777,19 @@ class BsgsEngine:
         l = d*B + b, every process seeding all D*B lanes of each target (so
         all record the same exact landings), reordered shard-major (d, t,
         b) and split into one (X, Y, Z) list entry per local shard."""
-        D, T, B = self.n_devices, len(self.targets), self.cfg.lanes
-        cfg = dataclasses.replace(self.cfg, lanes=D * B) if self.mesh else self.cfg
-        px, py = seed_lanes(cfg, self.targets, c0, on_exact=self._record,
-                            lane_offsets=self._lane_offsets)
-        z = np.zeros_like(px)
-        z[0] = 1
-        if not self.mesh:
-            return tuple(to_device(a, self.device) for a in (px, py, z))
-        cols = [a.reshape(8, T, D, B).transpose(0, 2, 1, 3).reshape(8, D, T * B)
-                for a in (px, py, z)]
-        return tuple([to_device(np.ascontiguousarray(c[:, self.mesh.first + i]), dev)
-                      for i, dev in enumerate(self.mesh.devices)] for c in cols)
+        with span("bsgs.seed"):
+            D, T, B = self.n_devices, len(self.targets), self.cfg.lanes
+            cfg = dataclasses.replace(self.cfg, lanes=D * B) if self.mesh else self.cfg
+            px, py = seed_lanes(cfg, self.targets, c0, on_exact=self._record,
+                                lane_offsets=self._lane_offsets)
+            z = np.zeros_like(px)
+            z[0] = 1
+            if not self.mesh:
+                return tuple(to_device(a, self.device) for a in (px, py, z))
+            cols = [a.reshape(8, T, D, B).transpose(0, 2, 1, 3).reshape(8, D, T * B)
+                    for a in (px, py, z)]
+            return tuple([to_device(np.ascontiguousarray(c[:, self.mesh.first + i]), dev)
+                          for i, dev in enumerate(self.mesh.devices)] for c in cols)
 
     def _record(self, t: int, key: int) -> bool:
         """Record `key` for target t unless it is already found; returns
@@ -869,32 +886,34 @@ class BsgsEngine:
                   f"lanes -> {new_b}", flush=True)
 
     def run(self, max_seconds: float | None = None, max_keys: int | None = None):
-        t0 = time.time()
-        runtime.sync("bsgs-run")
-        for entry in self._passes:
-            if entry is not self._pass:
-                self._set_pass(entry)
-            start_c0 = None
-            while True:
-                self._resume_c0 = None
-                self._run_pass(max_seconds=max_seconds, max_keys=max_keys,
-                               start_c0=start_c0)
-                # the drain after a dropout break may have found every target
-                if self._resume_c0 is None or len(self.found) >= self._n_all:
+        with span("bsgs.run"):
+            t0 = time.time()
+            runtime.sync("bsgs-run")
+            for entry in self._passes:
+                if entry is not self._pass:
+                    self._set_pass(entry)
+                start_c0 = None
+                while True:
+                    self._resume_c0 = None
+                    self._run_pass(max_seconds=max_seconds, max_keys=max_keys,
+                                   start_c0=start_c0)
+                    # the drain after a dropout break may have found every target
+                    if self._resume_c0 is None or len(self.found) >= self._n_all:
+                        break
+                    start_c0 = self._resume_c0
+                    with span("bsgs.dropout"):
+                        self._drop_found_targets(start_c0)
+                        self._set_step()
+                if (len(self.found) >= self._n_all
+                        or (max_seconds is not None
+                            and self.meter.elapsed > max_seconds)
+                        or (max_keys is not None
+                            and self.meter.total_keys >= max_keys)):
                     break
-                start_c0 = self._resume_c0
-                self._drop_found_targets(start_c0)
-                self._set_step()
-            if (len(self.found) >= self._n_all
-                    or (max_seconds is not None
-                        and self.meter.elapsed > max_seconds)
-                    or (max_keys is not None
-                        and self.meter.total_keys >= max_keys)):
-                break
-        self.run_seconds = time.time() - t0
-        if not self.quiet:
-            print("\n" + self.meter.line(), flush=True)
-        return self.found
+            self.run_seconds = time.time() - t0
+            if not self.quiet:
+                print("\n" + self.meter.line(), flush=True)
+            return self.found
 
     def _run_pass(self, max_seconds=None, max_keys=None, start_c0=None):
         cfg = self.cfg
@@ -961,38 +980,39 @@ class BsgsEngine:
         slots per step (per shard and step on a mesh); returns (hit count,
         whether a flag row is full), which tell `_drain` whether slots
         overflowed."""
-        cfg = self.cfg
-        DB = self.n_devices * cfg.lanes       # global lanes per target
-        Lg = len(self.targets) * DB           # query-space width per step
-        lanes, jsel = arr[:K], arr[K:2 * K]
-        nhits = int(arr[2 * K])
-        flags = arr[2 * K + 1:].reshape(-1, D)     # rows d*S + s
-        if nhits > 0:
-            for k in range(K):
-                g = int(lanes[k])
-                if g < 0:
-                    continue
-                s, r = divmod(g, Lg)
-                t, lane = self._global_lane(r)
-                c = c0 + (lane + s * DB) * cfg.stride
-                # jsel is the padded slab position (None: sentinel slot)
-                j = self._pos_to_j(int(jsel[k]))
-                self.probe_hits += 1
-                if j is None or not (self._record(t, c - j)
-                                     | self._record(t, c + j)):
-                    self.false_hits += 1
-        # degenerate-lane flags: P == +-advance point, Q = (c +- DB*stride)*G
-        for row in range(flags.shape[0]):
-            s = row % cfg.steps
-            for g in flags[row]:
-                g = int(g)
-                if g < 0:
-                    continue
-                t, lane = self._global_lane(g)
-                c = c0 + (lane + s * DB) * cfg.stride
-                self._record(t, c + DB * cfg.stride)
-                self._record(t, c - DB * cfg.stride)
-        return nhits, bool((flags[:, -1] >= 0).any())
+        with span("bsgs.decode"):
+            cfg = self.cfg
+            DB = self.n_devices * cfg.lanes       # global lanes per target
+            Lg = len(self.targets) * DB           # query-space width per step
+            lanes, jsel = arr[:K], arr[K:2 * K]
+            nhits = int(arr[2 * K])
+            flags = arr[2 * K + 1:].reshape(-1, D)     # rows d*S + s
+            if nhits > 0:
+                for k in range(K):
+                    g = int(lanes[k])
+                    if g < 0:
+                        continue
+                    s, r = divmod(g, Lg)
+                    t, lane = self._global_lane(r)
+                    c = c0 + (lane + s * DB) * cfg.stride
+                    # jsel is the padded slab position (None: sentinel slot)
+                    j = self._pos_to_j(int(jsel[k]))
+                    self.probe_hits += 1
+                    if j is None or not (self._record(t, c - j)
+                                         | self._record(t, c + j)):
+                        self.false_hits += 1
+            # degenerate-lane flags: P == +-advance point, Q = (c +- DB*stride)*G
+            for row in range(flags.shape[0]):
+                s = row % cfg.steps
+                for g in flags[row]:
+                    g = int(g)
+                    if g < 0:
+                        continue
+                    t, lane = self._global_lane(g)
+                    c = c0 + (lane + s * DB) * cfg.stride
+                    self._record(t, c + DB * cfg.stride)
+                    self._record(t, c - DB * cfg.stride)
+            return nhits, bool((flags[:, -1] >= 0).any())
 
 
 # ---------------------------------------------------------------------------
@@ -1031,6 +1051,7 @@ def derive_m(n_value: int | None, k: int) -> int:
 
 
 def run_bsgs_cli(args, device: torch.device) -> int:
+    from .. import trace
     from ..io.targets import load_pubkeys_file
     from ..cli import parse_int, resolve_devices, resolve_range
 
@@ -1097,6 +1118,7 @@ def run_bsgs_cli(args, device: torch.device) -> int:
     eng = BsgsEngine(cfg, tbl, pts, start, end, quiet=args.quiet,
                      stats_every=args.stats, matrix=args.matrix,
                      device=device, devices=devices)
+    spans = trace.totals()
     found = eng.run(max_seconds=args.max_seconds)
     if not args.quiet:
         secs = max(eng.run_seconds, 1e-9)
@@ -1109,5 +1131,8 @@ def run_bsgs_cli(args, device: torch.device) -> int:
         if args.dtable:
             print(f"[+] device table: {tbl.find_j_calls} find_j re-walks in "
                   f"{tbl.find_j_seconds:.3f} s", flush=True)
+        print("[+] BSGS " + trace.stage_line(
+            "bsgs", ("seed", "dispatch", "fetch", "decode", "rerun", "dropout"),
+            spans), flush=True)
     print(f"[+] BSGS done: {len(found)}/{len(pts)} keys found", flush=True)
     return 0

@@ -35,6 +35,7 @@ from ..parallel import mesh as pmesh
 from ..ref import ecc
 from ..ref.hashes import eth_address, hash160
 from ..stats import SpeedMeter, si
+from ..trace import span
 from .walker import (VARIANT_ENDO_POWER, WalkerConfig, decode_hit,
                      make_step_fn, seed_pivots)
 
@@ -119,22 +120,24 @@ class Engine:
     def _seed(self, k0: int):
         """Pivot state for base k0: (px, py) on the device, or on a mesh
         one (8, A) tensor per local shard (global pivots d*A .. d*A+A-1)."""
-        if not self.mesh:
-            return tuple(to_device(a, self.device)
-                         for a in seed_pivots(self.cfg, k0))
-        A, first = self.cfg.pivots, self.mesh.first
-        px, py = pmesh.seed_pivots_sharded(self.cfg, k0, self.n_devices)
-        return tuple([to_device(np.ascontiguousarray(a[:, (first + i) * A:
-                                                         (first + i + 1) * A]), dev)
-                      for i, dev in enumerate(self.mesh.devices)]
-                     for a in (px, py))
+        with span("walker.seed"):
+            if not self.mesh:
+                return tuple(to_device(a, self.device)
+                             for a in seed_pivots(self.cfg, k0))
+            A, first = self.cfg.pivots, self.mesh.first
+            px, py = pmesh.seed_pivots_sharded(self.cfg, k0, self.n_devices)
+            return tuple([to_device(np.ascontiguousarray(a[:, (first + i) * A:
+                                                             (first + i + 1) * A]), dev)
+                          for i, dev in enumerate(self.mesh.devices)]
+                         for a in (px, py))
 
     def _dispatch(self, step_fn, px, py):
         """One dispatch: (px', py', packed), packed the (D*S, K+1) hit rows
         (shard-major on a mesh)."""
-        if self.mesh:
-            return step_fn(px, py)[:3]
-        return step_fn(px, py, self._slab0, self._slab1)
+        with span("walker.dispatch"):
+            if self.mesh:
+                return step_fn(px, py)[:3]
+            return step_fn(px, py, self._slab0, self._slab1)
 
     def _decode_hit(self, k0: int, row: int, flat_idx: int):
         if self.mesh:
@@ -303,16 +306,18 @@ class Engine:
         + event); `_drain` waits on the event."""
         if packed.device.type != "cuda":
             return packed, None
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(packed.device))
-        return host, ev
+        with span("walker.fetch"):
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(packed.device))
+            return host, ev
 
     def _drain(self, k0, fetched):
         host, ev = fetched
         if ev is not None:
-            ev.synchronize()
+            with span("walker.drain_wait"):
+                ev.synchronize()
         most = self._decode(k0, host.numpy())
         if most > self.cfg.max_hits:
             self._rerun(k0, most)
@@ -322,72 +327,75 @@ class Engine:
         state has moved on), through a step fn whose top-k holds `most`
         hits per inner step (rounded up to a power of two), and decode
         every hit; `_verify_and_record` drops keys already recorded."""
-        K = 1 << (most - 1).bit_length()
-        print(f"[+] hit buffer saturated at k0={k0:#x} ({most} hits in an "
-              f"inner step, {self.cfg.max_hits} slots): dispatch re-run with "
-              f"{K} hit slots", flush=True)
-        if K not in self._wide_fns:
-            self._wide_fns[K] = self._make_step(
-                dataclasses.replace(self.cfg, max_hits=K))
-        packed = self._dispatch(self._wide_fns[K], *self._seed(k0))[2]
-        self._decode(k0, packed.cpu().numpy())
+        with span("walker.rerun"):
+            K = 1 << (most - 1).bit_length()
+            print(f"[+] hit buffer saturated at k0={k0:#x} ({most} hits in an "
+                  f"inner step, {self.cfg.max_hits} slots): dispatch re-run with "
+                  f"{K} hit slots", flush=True)
+            if K not in self._wide_fns:
+                self._wide_fns[K] = self._make_step(
+                    dataclasses.replace(self.cfg, max_hits=K))
+            packed = self._dispatch(self._wide_fns[K], *self._seed(k0))[2]
+            self._decode(k0, packed.cpu().numpy())
 
     def _decode(self, k0: int, packed: np.ndarray) -> int:
         """Verify and record the hits of a fetched (D*S, K+1) dispatch
         result; returns the largest hit count of its inner steps."""
-        hits, counts = packed[:, :-1], packed[:, -1]
-        if counts.sum() == 0:
-            return 0
-        for row in range(hits.shape[0]):
-            for f in hits[row]:
-                if f < 0:
-                    continue
-                variant, key = self._decode_hit(k0, row, int(f))
-                # two-sided range contract (the reference rejects hits
-                # outside [start, end] in both directions)
-                if self.start <= key <= self.end:
-                    e = VARIANT_ENDO_POWER[variant]
-                    if e:
-                        # a hit on beta^e * X: the matching target's key is
-                        # lambda^e * (walk key), up to sign
-                        key = key * pow(ecc.LAMBDA, e, ecc.N) % ecc.N
-                    self._verify_and_record(key)
-        return int(counts.max())
+        with span("walker.decode"):
+            hits, counts = packed[:, :-1], packed[:, -1]
+            if counts.sum() == 0:
+                return 0
+            for row in range(hits.shape[0]):
+                for f in hits[row]:
+                    if f < 0:
+                        continue
+                    variant, key = self._decode_hit(k0, row, int(f))
+                    # two-sided range contract (the reference rejects hits
+                    # outside [start, end] in both directions)
+                    if self.start <= key <= self.end:
+                        e = VARIANT_ENDO_POWER[variant]
+                        if e:
+                            # a hit on beta^e * X: the matching target's key is
+                            # lambda^e * (walk key), up to sign
+                            key = key * pow(ecc.LAMBDA, e, ecc.N) % ecc.N
+                        self._verify_and_record(key)
+            return int(counts.max())
 
     def run(self, max_seconds: float | None = None, max_keys: int | None = None):
-        cfg = self.cfg
-        runtime.sync("walker-run")
-        self._scan_low_region()
-        if len(self.found_targets) >= self.stop_after > 0:
-            return self.sink
-        px = py = None
-        last_k0 = None
-        last_stats = time.time()
-        span = self.span
-        inflight = []                  # [(k0, (host hits, event))]
-        for k0 in self._chunks():
-            if px is None or k0 != last_k0:
-                px, py = self._seed(k0)
-            px, py, packed = self._dispatch(self.step_fn, px, py)
-            last_k0 = k0 + span
-            inflight.append((k0, self._fetch_async(packed)))
-            if len(inflight) > self.PIPELINE:
-                self._drain(*inflight.pop(0))
-            self.meter.add(self.n_devices * cfg.keys_per_call * cfg.keys_per_point)
-            now = time.time()
-            if not self.quiet and now - last_stats >= self.stats_every:
-                lead, end = ("", "\n") if self.matrix else ("\r", "")
-                print(f"{lead}[+] {si(self.meter.rate)}  base {k0:#x}",
-                      end=end, flush=True)
-                last_stats = now
+        with span("walker.run"):
+            cfg = self.cfg
+            runtime.sync("walker-run")
+            self._scan_low_region()
             if len(self.found_targets) >= self.stop_after > 0:
-                break
-            if max_seconds is not None and self.meter.elapsed > max_seconds:
-                break
-            if max_keys is not None and self.meter.total_keys >= max_keys:
-                break
-        for entry in inflight:
-            self._drain(*entry)
-        if not self.quiet:
-            print("\n" + self.meter.line(), flush=True)
-        return self.sink
+                return self.sink
+            px = py = None
+            last_k0 = None
+            last_stats = time.time()
+            keys_per_dispatch = self.span
+            inflight = []                  # [(k0, (host hits, event))]
+            for k0 in self._chunks():
+                if px is None or k0 != last_k0:
+                    px, py = self._seed(k0)
+                px, py, packed = self._dispatch(self.step_fn, px, py)
+                last_k0 = k0 + keys_per_dispatch
+                inflight.append((k0, self._fetch_async(packed)))
+                if len(inflight) > self.PIPELINE:
+                    self._drain(*inflight.pop(0))
+                self.meter.add(self.n_devices * cfg.keys_per_call * cfg.keys_per_point)
+                now = time.time()
+                if not self.quiet and now - last_stats >= self.stats_every:
+                    lead, end = ("", "\n") if self.matrix else ("\r", "")
+                    print(f"{lead}[+] {si(self.meter.rate)}  base {k0:#x}",
+                          end=end, flush=True)
+                    last_stats = now
+                if len(self.found_targets) >= self.stop_after > 0:
+                    break
+                if max_seconds is not None and self.meter.elapsed > max_seconds:
+                    break
+                if max_keys is not None and self.meter.total_keys >= max_keys:
+                    break
+            for entry in inflight:
+                self._drain(*entry)
+            if not self.quiet:
+                print("\n" + self.meter.line(), flush=True)
+            return self.sink

@@ -38,6 +38,7 @@ from .io.results import ResultSink
 from .ref import ecc
 from .search.bsgs import (BabyTable, BsgsConfig, BsgsEngine, auto_lanes,
                           check_range)
+from .trace import span
 
 
 class BsgsdServer:
@@ -66,13 +67,16 @@ class BsgsdServer:
     # -- search ------------------------------------------------------------
 
     def search(self, pubkey_hex: str, k_from: int, k_to: int) -> int | None:
-        point = ecc.parse_pubkey_hex(pubkey_hex)
-        # a query the engine would refuse raises here, before any other
-        # process is handed it
-        cfg = self._config(k_from, k_to)
-        with self._search_lock:
-            self._publish(f"{pubkey_hex} {k_from} {k_to}")
-            return self._search(point, cfg, k_from, k_to)
+        """The key of `pubkey_hex` in [k_from, k_to], or None. Runs in a
+        `bsgsd.query` span, so the engine's spans nest under it."""
+        with span("bsgsd.query"):
+            point = ecc.parse_pubkey_hex(pubkey_hex)
+            # a query the engine would refuse raises here, before any other
+            # process is handed it
+            cfg = self._config(k_from, k_to)
+            with self._search_lock:
+                self._publish(f"{pubkey_hex} {k_from} {k_to}")
+                return self._search(point, cfg, k_from, k_to)
 
     def _config(self, k_from: int, k_to: int) -> BsgsConfig:
         """The engine config of a query; raises ValueError for a range the
@@ -85,8 +89,9 @@ class BsgsdServer:
     def _search(self, point, cfg: BsgsConfig, k_from: int,
                 k_to: int) -> int | None:
         sink = ResultSink(path=self.result_path, quiet=True)
-        eng = BsgsEngine(cfg, self.tbl, [point], k_from, k_to, sink=sink,
-                         quiet=True, device=self.device, devices=self.devices)
+        with span("bsgsd.engine_init"):
+            eng = BsgsEngine(cfg, self.tbl, [point], k_from, k_to, sink=sink,
+                             quiet=True, device=self.device, devices=self.devices)
         return eng.run().get(0)
 
     # -- the other processes of a multi-process daemon ---------------------

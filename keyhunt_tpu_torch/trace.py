@@ -1,10 +1,21 @@
-"""Named ranges for profiler traces of the search steps.
+"""Named spans of the port's host stages, and profiler traces of the
+search steps.
 
-`span(name)` opens a `torch.profiler.record_function` range while a
-profiler is running and is a null context otherwise (one flag read per
-call), so the step functions carry their stage names at no cost. A trace
-of a real dispatch then gives each stage's device time: the device time
-of the kernels launched inside its range.
+`with span(name):` times its body on `time.perf_counter_ns()` and adds,
+per name, its count, its total and its self time (the total less its
+children's: each thread keeps its own stack of open spans) to an
+in-memory table under a lock. `totals()` returns a copy of that table and
+`reset()` clears it. These counters are always on; there is no switch.
+While a `torch.profiler` runs, a span also opens a
+`torch.profiler.record_function` range of the same name, so a trace
+holds every span on the profiler's own clock beside the device's events:
+the device time of the kernels launched inside a step's range is that
+step's device time, and the device's idle gaps fall inside the host span
+that was open meanwhile.
+
+Engines name their spans `<engine>.<stage>` (`bsgs.dispatch`,
+`walker.decode`), the baby table `table.<stage>`, the daemon
+`bsgsd.<stage>`.
 
 `profile_dispatches` takes such a trace of a dispatch function and reads
 it (device ms per stage, busy and idle shares); `steady` times one back to
@@ -13,18 +24,89 @@ back. Both run on CUDA only.
 
 from __future__ import annotations
 
-import contextlib
 import re
+import threading
 import time
 
 import torch
 
+_perf_ns = time.perf_counter_ns
+_profiling = torch.autograd._profiler_enabled
+_lock = threading.Lock()
+_local = threading.local()
+#: name -> [count, total_ns, self_ns]
+_totals: dict[str, list[int]] = {}
 
-def span(name: str):
-    """A profiler range named `name`, or a null context with no profiler."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+
+class span:
+    """`with span(name):` -- one timed stage (module docstring)."""
+
+    __slots__ = ("name", "_t0", "_child", "_range", "_stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        try:
+            stack = _local.stack
+        except AttributeError:
+            stack = _local.stack = []
+        stack.append(self)
+        self._stack = stack
+        self._child = 0
+        self._range = (torch.profiler.record_function(self.name).__enter__()
+                       if _profiling() else None)
+        self._t0 = _perf_ns()
+
+    def __exit__(self, exc_type, exc, tb):
+        dur = _perf_ns() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        stack = self._stack
+        stack.pop()
+        if stack:
+            stack[-1]._child += dur
+        own = dur - self._child
+        with _lock:
+            row = _totals.get(self.name)
+            if row is None:
+                _totals[self.name] = [1, dur, own]
+            else:
+                row[0] += 1
+                row[1] += dur
+                row[2] += own
+
+
+def totals() -> dict[str, dict[str, int]]:
+    """A copy of the span table: name -> {"count", "total_ns", "self_ns"},
+    over every thread since the process started or the last `reset()`."""
+    with _lock:
+        return {name: {"count": c, "total_ns": t, "self_ns": s}
+                for name, (c, t, s) in _totals.items()}
+
+
+def reset() -> None:
+    """Clear the span table (spans open now still add when they close)."""
+    with _lock:
+        _totals.clear()
+
+
+def stage_line(prefix: str, stages, since: dict | None = None) -> str:
+    """The operator's reading of an engine's spans: host ms per
+    `<prefix>.dispatch` in each of `stages`, then the drain's wait and the
+    whole of `<prefix>.run`, from `totals()` less the earlier copy `since`."""
+    now, since = totals(), since or {}
+
+    def delta(name, key="total_ns"):
+        return now.get(name, {}).get(key, 0) - since.get(name, {}).get(key, 0)
+
+    n = delta(f"{prefix}.dispatch", "count")
+    per = ", ".join(f"{s} {delta(f'{prefix}.{s}') / 1e6 / max(n, 1):.3f}"
+                    for s in stages)
+    wait = delta(f"{prefix}.drain_wait") / 1e6 / max(n, 1)
+    run = delta(f"{prefix}.run") / 1e6 / max(n, 1)
+    return (f"host ms per dispatch ({n} dispatches): {per}; drain wait "
+            f"{wait:.3f}; run {run:.3f}")
 
 
 def steady(fn, seconds: float = 10.0) -> tuple[int, float]:
