@@ -10,7 +10,7 @@ prints no result:
    every kernel in keyhunt_tpu_torch/csrc/ (seconds, registers, spills),
    and whether the native host library (lane seeding, argsort) is built;
 2. kernels: K1 field_mul, K2 field_sqr, K3 batch_inv, K4 giant_scan, K5
-   hash160_both and K6 hash160_uncompressed against their plain PyTorch
+   hash160_both, K6 hash160_uncompressed and P1 against their plain PyTorch
    versions on the card (K1-K3 at BSGS's 2^21, K5 and K6 at the walker's
    2^18, K4 at BSGS's 131072 lanes x 16 steps), compared exactly (integer
    arithmetic: no tolerance) on the host, and on sampled columns against
@@ -30,12 +30,15 @@ prints no result:
    per element (cuobjdump of the built library) and per second, each
    bound fixed to the body's fewest instructions; T1's independent body
    back to back for ~3 s while nvidia-smi samples the SM clock (the issue
-   rate at the measured clock); and the T1 tool (`python -m
+   rate at the measured clock); P1 probe_packed (the port's own kernel)
+   at 2^21 queries against a seeded 2^20 x 338 slab (bsgs-m2e28's
+   geometry), exactly against the plain probe, with its registers per
+   group width, its device ms and its bound; and the T1 tool (`python -m
    keyhunt_tpu_torch.tools.bench_vpu`) once on the card;
 3. BSGS end to end: `keyhunt_tpu_torch.cli -m bsgs --device cuda -k 16`
    at m = 2^26 over a 2^48 range (131072 lanes x 16 steps per dispatch)
    against 4 planted keys, one on a stride centre; KEYFOUNDKEYFOUND.txt
-   must hold exactly those keys, and K1-K4 must have launched;
+   must hold exactly those keys, and K1-K4 and P1 must have launched;
 4. BSGS rate: steady giant steps for ~10 s, giant points/s and keys/s on
    this card, and a torch.profiler trace of the same dispatch: device ms
    per stage (the step's `trace.span` ranges) and per kernel, and the
@@ -67,11 +70,12 @@ prints no result:
    trace of one filter and one solve (device ms per `minikeys.*` stage,
    idle share);
 10. BSGS table regimes (run before phase 9), each through the CLI or the
-   daemon, each held to exactly its planted keys and to K1-K4 launched in
-   its own run: `--dtable -k 64` (m = 2^28 built on the card) over a 2^52
-   range against 4 keys, one on a stride centre, with the build's
-   seconds, resident GiB and overflow, false positives, `find_j` re-walks
-   and their seconds, ms per dispatch and giant points/s with the drains;
+   daemon, each held to exactly its planted keys and to K1-K4 and P1
+   launched in its own run: `--dtable -k 64` (m = 2^28 built on the
+   card) over a 2^52 range against 4 keys, one on a stride centre, with
+   the build's seconds, resident GiB and overflow, false positives,
+   `find_j` re-walks and their seconds, ms per dispatch and giant
+   points/s with the drains;
    `--table-partitions 4` (peak device memory against the whole slab) and
    `-B ggsb --bsgs-block-count 4` on phase 3's saved table and keys; the
    daemon (`keyhunt_tpu_torch.server`) on that table in a thread: a
@@ -85,8 +89,8 @@ prints no result:
    engines must reuse the shards cached on the table); the sharded
    walker (`Engine`,
    -l compress -e, 64 x 4096 x 16 a shard) over 2^26 keys against 4
-   planted addresses; each run held to its keys and to K1-K4 (K1-K3 and
-   K5 for the walker) launched in it. Then `python -m
+   planted addresses; each run held to its keys and to K1-K4 and P1
+   (K1-K3 and K5 for the walker) launched in it. Then `python -m
    keyhunt_tpu_torch.tools.multiproc --device cuda`: two processes x 2
    shards of the card over gloo, each finding the walker, BSGS and daemon
    keys planted in the other's shards, the daemon answering a bad range
@@ -106,7 +110,11 @@ prints no result:
    queued behind ~1 ms fillers that hide the host's issue, at that width
    (rotating through operand sets that exceed the L2 where the bound is
    bytes); then the kernels ranked by launches x (device ms - bound)
-   summed over those widths (T1 at its one phase-2 shape).
+   summed over those widths (T1 at its one phase-2 shape). P1 runs at each
+   (queries, maxlen) the runs launched it at, on a seeded slab of that
+   maxlen, and then on the slabs the paths probe: a partition of a 4-way
+   split, phase 3's m = 2^26 table at the daemon's width, a device table
+   (`--dtable`, rows not sorted by residual) and an avg-32 table.
 
 A kernel timed below its bound / 1.05 (in phase 2 or 9) fails the run.
 
@@ -158,6 +166,8 @@ KERNELS = {   # name -> (source, replaced TPU kernel)
                       "tools/bench_vpu.py:43"),
     "vpu_rotate_mix": ("keyhunt_tpu_torch/csrc/bench_vpu.cu",
                        "tools/bench_vpu.py:43"),
+    "probe_packed": ("keyhunt_tpu_torch/csrc/probe.cu",
+                     "none: keyhunt_tpu/ops/match.py's packed probe was plain jnp"),
 }
 
 # walker geometry: the CLI's defaults, one dispatch = 2^22 keys
@@ -208,9 +218,12 @@ OPS = {"mul": 232, "sqr": 170, "addsub": 24, "inv": 8000}
 
 
 def _cost(name: str, n) -> tuple[int, int]:
-    """(bytes, operations) of one call of a kernel of K1-K6 over n
-    elements (K4: n = (lanes, steps)): the arguments of `_bound`."""
+    """(bytes, operations) of one call of a kernel of K1-K6 and P1 over n
+    elements (K4: n = (lanes, steps); P1: n = (queries, maxlen), every
+    query reading its row): the arguments of `_bound`."""
     from keyhunt_tpu_torch.tools.bench_builds import FEWEST
+    if name == "probe_packed":
+        return _probe_cost(*n, n[0])
     if name == "giant_scan":
         L, S = n           # state in and out; X, Z and a flag per step
         return (L * 192 + S * L * 68,
@@ -297,7 +310,7 @@ def phase_device():
                            r"giant_scan|hash160_both|hash160_uncompressed|"
                            r"vpu_independent|vpu_dependent|vpu_rotate_mix|"
                            r"field_latency)_kernel", fn)
-            ptxas[kn.group(0) if kn else fn] = usage
+            ptxas[kn.group(0) if kn else _probe_variant(fn) or fn] = usage
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": info["seconds"],
@@ -360,6 +373,8 @@ def phase_kernels(device):
         raise AssertionError(f"field latency probe: the inversions disagree: {lat}")
     stats["giant_scan"] = _giant_scan_kernel(device)
     emit({"phase": "kernel", "name": "giant_scan", **stats["giant_scan"]})
+    stats["probe_packed"] = _probe_kernel(device)
+    emit({"phase": "kernel", "name": "probe_packed", **stats["probe_packed"]})
     stats.update(_hash_kernels(rng, device))
     stats.update(_vpu_kernels(device))
     return stats
@@ -474,6 +489,133 @@ def _giant_scan_kernel(device) -> dict:
             **_bound(*_cost("giant_scan", (L, S)))}
 
 
+# P1 at the main path's shape: bsgs-m2e28's slab (m = 2^28 at avg 256:
+# 2^20 rows of maxlen 338) against one dispatch of 8 targets x 16384
+# lanes x 16 steps
+PROBE_ROWS, PROBE_MAXLEN, PROBE_QUERIES = 1 << 20, 338, 1 << 21
+
+
+def _probe_variant(fn: str) -> str | None:
+    """"probe_packed_kernel<G,VEC>" for a mangled P1 instantiation."""
+    hit = re.search(r"probe_packed_kernelILi(\d+)ELi(\d+)E", fn)
+    return f"probe_packed_kernel<{hit.group(1)},{hit.group(2)}>" if hit else None
+
+
+def _probe_cost(queries: int, maxlen: int, reading: int) -> tuple[int, int]:
+    """(bytes, operations) of one P1 call: `reading` of the queries read
+    their maxlen * 4 B row (the rest lie outside a partition), every query
+    reads its two words and writes a hit byte and an int64 position; one
+    compare a slot read."""
+    return reading * maxlen * 4 + queries * 17, reading * maxlen
+
+
+def _probe_slab(gen, rows: int, maxlen: int, device):
+    """A (rows, maxlen) int32 packed slab on the card: row r holds fill[r]
+    random residuals (fill ~ N(mean, mean) for mean = 3/4 maxlen, rounded
+    and clipped to [0, maxlen]) and 0xFFFFFFFF sentinels after them; every
+    8th row repeats its slot 0 at a random later slot, so a query of that
+    value must take slot 0 (the first slot wins)."""
+    import torch
+    mean = 0.75 * maxlen
+    slab = torch.randint(-(1 << 31), 1 << 31, (rows, maxlen), generator=gen,
+                         device=device, dtype=torch.int64).to(torch.int32)
+    dup = torch.randint(1, maxlen, (rows,), generator=gen, device=device)
+    eighth = torch.arange(0, rows, 8, device=device)
+    slab[eighth, dup[eighth]] = slab[eighth, 0]
+    fill = (torch.randn(rows, generator=gen, device=device) * mean ** 0.5 + mean)
+    fill = fill.round().clamp(0, maxlen)
+    slab[torch.arange(maxlen, device=device) >= fill[:, None]] = -1
+    return slab
+
+
+def _probe_queries(gen, slab, shift: int, n: int, base: int = 0):
+    """n queries (w0, w1) as int32 bit patterns for a slab holding global
+    bucket rows [base, base + rows): the even ones carry the value of a
+    random slot of a random row (an entry, a duplicate, or in a padded row
+    a sentinel: each must hit its first equal slot), the odd ones are
+    random fragments of any of the 2^(32 - shift) buckets."""
+    import torch
+    from keyhunt_tpu_torch.ops.u256 import narrow, widen
+    rows, maxlen = slab.shape
+    dev, bbits = slab.device, 32 - shift
+
+    def rand(hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev)
+    r, c = rand(rows), rand(maxlen)
+    v = widen(slab[r, c])
+    w0 = ((r + base) << shift) | (v >> bbits)
+    w1 = ((v & ((1 << bbits) - 1)) << shift) | rand(1 << shift)
+    odd = torch.arange(n, device=dev) % 2 == 1
+    w0 = torch.where(odd, rand(1 << 32), w0)
+    w1 = torch.where(odd, rand(1 << 32), w1)
+    return narrow(w0), narrow(w1)
+
+
+def _check_probe(name: str, got, want, w0, w1) -> int:
+    """P1's (hit, pos) exactly against the plain probe's, on the host;
+    raises with the first differing queries. Returns 0."""
+    gh, gp, wh, wp = (t.cpu().numpy() for t in (*got, *want))
+    bad = np.nonzero((gh != wh) | (gp != wp))[0]
+    if bad.size:
+        a, b = w0.cpu().numpy(), w1.cpu().numpy()
+        first = [{"query": int(i), "w0": int(a[i]) & 0xFFFFFFFF,
+                  "w1": int(b[i]) & 0xFFFFFFFF, "kernel": [bool(gh[i]), int(gp[i])],
+                  "plain": [bool(wh[i]), int(wp[i])]} for i in bad[:4]]
+        raise AssertionError(f"{name}: kernel != plain at {bad.size} queries; "
+                             f"first: {first}")
+    return 0
+
+
+def _probe_timed(name: str, slab, shift: int, n: int, gen, filler,
+                base=None) -> dict:
+    """P1 on `slab` (a partition from global row `base` when given) for n
+    queries (`_probe_queries`; each taken from the slab must hit) through
+    `timed_check`, against the plain probe; also the plain probe's ms and
+    the rows the queries read."""
+    from keyhunt_tpu_torch.ops import match
+    from keyhunt_tpu_torch.ops.u256 import widen
+    rows, maxlen = slab.shape
+    b0 = 0 if base is None else base
+    plain = (match.probe_buckets_packed_ranged_plain if base is not None else
+             lambda s, a, b, sh, _: match.probe_buckets_packed_plain(s, a, b, sh))
+
+    def operands():
+        return (slab, *_probe_queries(gen, slab, shift, n, b0), shift, b0)
+
+    def compare(name, got, want, ops):
+        err = _check_probe(name, got, want, *ops[1:3])
+        if not bool(got[0][0::2].all()):
+            raise AssertionError(f"{name}: a query taken from the slab missed")
+        return err
+
+    def reading(ops):
+        lb = (widen(ops[1]) >> shift) - b0
+        return int(((lb >= 0) & (lb < rows)).sum())
+
+    row, ops, got = timed_check(name, match.probe_packed_cuda, plain, operands,
+                                compare, lambda ops: _probe_cost(n, maxlen, reading(ops)),
+                                filler)
+    return {"case": name, "slab": [rows, maxlen], "base": base, "queries": n,
+            "rows_read": reading(ops), "hits": int(got[0].sum()), **row,
+            "plain_ms": median_ms(lambda: plain(*ops), 3)}
+
+
+def _probe_kernel(device) -> dict:
+    """P1 at the main path's shape (`PROBE_*`) exactly against the plain
+    probe, timed beside its bound, with the registers and spills of each
+    instantiation (group width G, vector words VEC)."""
+    import torch
+    from keyhunt_tpu_torch import _build
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    slab = _probe_slab(gen, PROBE_ROWS, PROBE_MAXLEN, device)
+    out = _probe_timed("main", slab, 32 - (PROBE_ROWS.bit_length() - 1),
+                       PROBE_QUERIES, gen, _filler(device))
+    regs = {_probe_variant(fn): u for fn, u in
+            _build.ptxas_usage(_build.BUILD_INFO["ptxas"]["probe"]).items()}
+    return {**out, "shape": {"queries": PROBE_QUERIES, "slab": out["slab"]},
+            "ptxas": regs}
+
+
 def hidden_issue_ms(fn, host_ms: float, spacer, calls: int = 20) -> dict:
     """Device ms of one fn() call with the host's issue hidden: enough
     `spacer()` calls (each ~1 ms of device work) are queued first to cover
@@ -497,6 +639,51 @@ def hidden_issue_ms(fn, host_ms: float, spacer, calls: int = 20) -> dict:
     end.synchronize()
     return {"device_ms": start.elapsed_time(end) / calls, "issue_ms": issue_ms,
             "queued_ms": ahead * spacer_ms}
+
+
+def _filler(device):
+    """The spacer operand of `hidden_issue_ms`: ~1 ms of T1 work a call."""
+    import torch
+    return torch.zeros(1 << 26, dtype=torch.int32, device=device)
+
+
+def timed_check(name: str, kernel, plain, operands, compare, cost,
+                filler) -> tuple[dict, tuple, object]:
+    """One kernel at one shape: kernel(*ops) on ops = operands() held
+    exactly against plain(*ops) by compare(name, got, want, ops), which
+    returns the error; the median CUDA-event ms of one call, which at
+    small widths is the wrapper's host issue time; and the device ms with
+    that issue hidden (`hidden_issue_ms`, T1 on `filler` as the spacer),
+    beside the bound of cost(ops) = (bytes, operations). Where the bound
+    is bytes and a call moves less than twice the 50 MB L2, the timed
+    calls rotate through enough fresh operands() (up to 64) to move more
+    than that, so the reading is not of operands left in L2; a device time
+    under 1/1.05 of the bound fails. Returns the row's fields, ops and
+    the kernel's outputs on them."""
+    import itertools
+    from keyhunt_tpu_torch.ops import vpu
+    from keyhunt_tpu_torch.tools.bench_builds import rotation
+    ops = operands()
+    got = kernel(*ops)
+    err = compare(name, got, plain(*ops), ops)
+    ms = median_ms(lambda: kernel(*ops), 20)
+    nbytes, nops = cost(ops)
+    bound = _bound(nbytes, nops)
+    sets = [ops]
+    if bound["bound_by"] == "bytes":
+        sets += [operands() for _ in range(rotation(nbytes) - 1)]
+    turn = itertools.cycle(sets)
+    timed = hidden_issue_ms(lambda: kernel(*next(turn)), ms,
+                            lambda: vpu.independent(filler))
+    if timed["issue_ms"] >= timed["queued_ms"]:
+        raise AssertionError(f"{name}: the host's issue outlasted the queued "
+                             f"work: {timed}")
+    dev = timed["device_ms"]
+    if bound["bound_ms"] > MAX_BOUND_SHARE * dev:
+        raise AssertionError(f"{name}: {dev} device ms is under its bound "
+                             f"{bound['bound_ms']} ms / {MAX_BOUND_SHARE}")
+    return ({"max_abs_err": err, "ms": ms, **timed, "operand_sets": len(sets),
+             **bound, "bound_share": bound["bound_ms"] / dev}, ops, got)
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -706,7 +893,7 @@ def _planted_keys():
     return keys
 
 
-BSGS_KERNELS = ("field_mul", "field_sqr", "batch_inv", "giant_scan")
+BSGS_KERNELS = ("field_mul", "field_sqr", "batch_inv", "giant_scan", "probe_packed")
 # the kernels each walker run must launch in its own run
 _EC = ("field_mul", "field_sqr", "batch_inv")
 WALKER_RUN_KERNELS = {
@@ -795,7 +982,7 @@ def _report(run: dict) -> dict:
 
 def _held(name: str, run: dict, planted: list) -> None:
     """A BSGS run must have found exactly its planted keys and launched
-    K1-K4 itself."""
+    K1-K4 and P1 itself."""
     if run["rc"] != 0 or run["found"] != sorted(planted):
         raise AssertionError(f"{name}: rc {run['rc']}, found {run['found']}, "
                              f"planted {sorted(planted)}")
@@ -923,8 +1110,7 @@ def phase_rate(device, smi):
     slab, _, shift = tbl.device_packed(device)
     T, B, S = 4, 32768, 16
     cfg = bsgs.BsgsConfig(m=m, lanes=B, steps=S)
-    chunks = bsgs.probe_chunks_for(S * T * B, int(slab.shape[1]))
-    step = bsgs.make_giant_step_fn(cfg, shift, probe_chunks=chunks)
+    step = bsgs.make_giant_step_fn(cfg, shift)
     targets = [ecc.pubkey(k) for k in _planted_keys()]
     px, py = bsgs.seed_lanes(cfg, targets, 1 + m)
     X, Y = u256.to_torch(px, device), u256.to_torch(py, device)
@@ -935,7 +1121,7 @@ def phase_rate(device, smi):
     n, secs = steady(lambda: step(X, Y, Z, slab))
     points = n * T * B * S / secs
     out = {"phase": "rate", "card": smi, "dispatches": n, "seconds": secs,
-           "lanes": T * B, "steps": S, "probe_chunks": chunks,
+           "lanes": T * B, "steps": S,
            "slab_shape": list(slab.shape), "ms_per_dispatch": 1e3 * secs / n,
            "giant_points_per_s": points, "keys_per_s": points * 2 * m,
            "trace": profile_dispatches(lambda: step(X, Y, Z, slab), 5, "bsgs")}
@@ -1097,7 +1283,7 @@ def _planted_dtable_keys():
 
 def phase_bsgs_tables(device) -> list:
     """BSGS's other table regimes through the CLI, each held to its planted
-    keys and to K1-K4 launched in its own run: (a) `--dtable -k 64`
+    keys and to K1-K4 and P1 launched in its own run: (a) `--dtable -k 64`
     (m = 2^28, built on the card) over a 2^52 range against 4 keys, one on
     a stride centre, with the build's seconds, resident GiB and overflow,
     the false positives and `find_j` re-walks, and ms per dispatch with
@@ -1221,9 +1407,10 @@ def phase_mesh(device, smi, rate: dict) -> dict:
     2 table partitions; the daemon over the 4 shards (the shards' upload
     seconds, then two queries on the cached shards); the sharded walker
     (`Engine`, -l compress -e) over
-    4 shards of 64 x 4096 x 16 against planted addresses; each held to K1-K4
-    (K5 for the walker) launched in its own run. Then two processes x 2
-    shards over the card through gloo (`tools.multiproc`), each finding
+    4 shards of 64 x 4096 x 16 against planted addresses; each held to
+    K1-K4 and P1 (K1-K3 and K5 for the walker) launched in its own run.
+    Then two processes x 2 shards over the card through gloo
+    (`tools.multiproc`), each finding
     the keys planted in the other's shards, and the giant points/s of
     D = 4 shards beside phase 4's D = 1 with a profiler trace of one
     dispatch. Returns the in-process runs."""
@@ -1406,9 +1593,12 @@ def _path_shape_kernels(rng, device) -> dict:
     """name -> (kernel, plain version, operands(n), compare) of K1-K6:
     random operands of width n with 0, 1, p-1, p and 2^256-1 planted in the
     first columns (K3: random canonical values; K4 at n = (L, S): BSGS's
-    lanes with C and -C planted in lanes 0 and 1); compare(name, got,
-    want, operands) holds the outputs exactly and returns the error."""
-    from keyhunt_tpu_torch.ops import cuda_field, cuda_hash, field, jacwalk
+    lanes with C and -C planted in lanes 0 and 1; P1 at n = (queries,
+    maxlen): a seeded slab of that maxlen and half its queries taken from
+    it); compare(name, got, want, operands) holds the outputs exactly and
+    returns the error."""
+    import torch
+    from keyhunt_tpu_torch.ops import cuda_field, cuda_hash, field, jacwalk, match
     from keyhunt_tpu_torch.ops import hash160 as h160
     from keyhunt_tpu_torch.tools import bench_builds
 
@@ -1421,6 +1611,19 @@ def _path_shape_kernels(rng, device) -> dict:
 
     def k4_operands(n):
         return bench_builds.planted_input(*n, device, 1 << M_LOG2)
+
+    gen, slabs = torch.Generator(device=device).manual_seed(SEED + 23), {}
+
+    def p1_operands(n):
+        """A slab of maxlen n[1] and at least 1 GiB (`_probe_slab`, one per
+        maxlen) and n[0] fresh queries (`_probe_queries`)."""
+        queries, maxlen = n
+        rows = 1 << ((1 << 30) // (4 * maxlen) - 1).bit_length()
+        if maxlen not in slabs:
+            slabs[maxlen] = _probe_slab(gen, rows, maxlen, device)
+        shift = 32 - (rows.bit_length() - 1)
+        return (slabs[maxlen], *_probe_queries(gen, slabs[maxlen], shift, queries),
+                shift)
 
     return {
         "field_mul": (cuda_field.mul, field.mul_plain,
@@ -1436,6 +1639,10 @@ def _path_shape_kernels(rng, device) -> dict:
         "hash160_uncompressed": (cuda_hash.hash160_uncompressed,
                                  h160.hash160_uncompressed_plain,
                                  lambda n: _edged_pair(rng, n, device), hash_out),
+        "probe_packed": (match.probe_packed_cuda, match.probe_buckets_packed_plain,
+                         p1_operands,
+                         lambda name, got, want, ops: _check_probe(name, got, want,
+                                                                   *ops[1:3])),
     }
 
 
@@ -1453,12 +1660,8 @@ def phase_path_shapes(device, runs: dict, stats: dict) -> dict:
     `stats`. Then the ranking: per kernel, launches x (device ms - bound)
     summed over widths; T1, launched at the one shape phase 2 times, from
     phase 2's ms. Returns the launches by kernel over all runs."""
-    import itertools
-    import torch
-    from keyhunt_tpu_torch.ops import vpu
-    from keyhunt_tpu_torch.tools.bench_builds import rotation
     kernels = _path_shape_kernels(np.random.default_rng(SEED + 13), device)
-    filler = torch.zeros(1 << 26, dtype=torch.int32, device=device)
+    filler = _filler(device)
     launched, paths, total = {}, {}, {}
     for path, path_runs in runs.items():
         for run in path_runs:
@@ -1471,32 +1674,17 @@ def phase_path_shapes(device, runs: dict, stats: dict) -> dict:
         if kern not in kernels:
             continue
         kernel, plain, operands, compare = kernels[kern]
-        ops = operands(n)
-        err = compare(f"{kern} at width {n}", kernel(*ops), plain(*ops), ops)
-        stats[kern]["max_abs_err"] = max(stats[kern]["max_abs_err"], err)
-        ms = median_ms(lambda: kernel(*ops), 20)
-        nbytes, nops = _cost(kern, n)
-        bound = _bound(nbytes, nops)
-        sets = [ops]
-        if bound["bound_by"] == "bytes":
-            sets += [operands(n) for _ in range(rotation(nbytes) - 1)]
-        turn = itertools.cycle(sets)
-        timed = hidden_issue_ms(lambda: kernel(*next(turn)), ms,
-                                lambda: vpu.independent(filler))
-        if timed["issue_ms"] >= timed["queued_ms"]:
-            raise AssertionError(f"{kern} at width {n}: the host's issue "
-                                 f"outlasted the queued work: {timed}")
-        dev = timed["device_ms"]
-        if bound["bound_ms"] > MAX_BOUND_SHARE * dev:
-            raise AssertionError(f"{kern} at width {n}: {dev} device ms is under "
-                                 f"its bound {bound['bound_ms']} ms / {MAX_BOUND_SHARE}")
+        row, _, _ = timed_check(f"{kern} at width {n}", kernel, plain,
+                                lambda: operands(n), compare,
+                                lambda _ops: _cost(kern, n), filler)
+        stats[kern]["max_abs_err"] = max(stats[kern]["max_abs_err"],
+                                         row["max_abs_err"])
         rows.append({"kernel": kern, "width": n, "paths": sorted(paths[kern, n]),
-                     "launches": c, "max_abs_err": err, "ms": ms, **timed,
-                     "operand_sets": len(sets), "bound_ms": bound["bound_ms"],
-                     "bound_share": bound["bound_ms"] / dev})
-        excess[kern] = excess.get(kern, 0.0) + c * (dev - bound["bound_ms"])
+                     "launches": c, **row})
+        dev = row["device_ms"]
+        excess[kern] = excess.get(kern, 0.0) + c * (dev - row["bound_ms"])
         device_ms[kern] = device_ms.get(kern, 0.0) + c * dev
-        event_ms[kern] = event_ms.get(kern, 0.0) + c * ms
+        event_ms[kern] = event_ms.get(kern, 0.0) + c * row["ms"]
     for kern in KERNELS:
         if kern not in kernels and total.get(kern):
             excess[kern] = total[kern] * (stats[kern]["ms"] - stats[kern]["bound_ms"])
@@ -1512,6 +1700,53 @@ def phase_path_shapes(device, runs: dict, stats: dict) -> dict:
                        "event_ms": event_ms[k], "excess_ms": excess[k]}
                       for k in sorted(excess, key=lambda k: -excess[k])]})
     return total
+
+
+def phase_probe_cases(device, runs: dict) -> list:
+    """P1 on the slabs the BSGS paths probe beside the synthetic ones of
+    phases 2 and 9, each exactly against the plain probe and timed beside
+    its bound (`_probe_timed`): the ranged probe on partition 1 of a
+    4-way split of a 2^20 x 338 slab; phase 3's m = 2^26 table at the
+    daemon's width (its run in phase 10); a device table at m = 2^26
+    (`--dtable`: rows in ascending j, not sorted by residual; the share of
+    unsorted rows is reported and must be above 0); and a table of 2^25
+    random fragments at avg 32 (maxlen ~64, group width 8)."""
+    import torch
+    from keyhunt_tpu_torch.device import to_device
+    from keyhunt_tpu_torch.ops import match
+    from keyhunt_tpu_torch.ops.u256 import widen
+    from keyhunt_tpu_torch.search import bsgs, dtable
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    rows, filler = [], _filler(device)
+    slab = _probe_slab(gen, PROBE_ROWS, PROBE_MAXLEN, device)
+    per = PROBE_ROWS // 4
+    rows.append(_probe_timed("ranged_4way", slab[per:2 * per], 12, PROBE_QUERIES,
+                             gen, filler, base=per))
+    del slab
+    daemon = [n for run in runs["bsgs_tables"] if run["argv"][0].endswith("server")
+              for kern, n, _ in run["launch_widths"] if kern == "probe_packed"]
+    if not daemon:
+        raise AssertionError("the daemon's run launched no probe_packed")
+    slab, _, shift = bsgs.load_table(1 << M_LOG2, RUN_DIR).device_packed(device)
+    for queries, maxlen in sorted(set(map(tuple, daemon))):
+        rows.append(_probe_timed("daemon_m2e26", slab, shift, queries, gen, filler))
+    tbl = dtable.build_device_table(1 << 26, device=device)
+    res = widen(tbl.res_slab)
+    unsorted = float((res[:, 1:] < res[:, :-1]).any(dim=1).float().mean())
+    row = _probe_timed("dtable_m2e26", tbl.res_slab, tbl.shift, PROBE_QUERIES, gen,
+                       filler)
+    rows.append({**row, "unsorted_rows": unsorted})
+    if not unsorted > 0:
+        raise AssertionError("the device table's rows all came out sorted")
+    del tbl, res
+    rng = np.random.default_rng(SEED + 31)
+    frags = np.sort(rng.integers(0, 1 << 64, size=1 << 25, dtype=np.uint64))
+    small, _, shift = match.build_buckets_packed(
+        (frags >> 32).astype(np.uint32), (frags & 0xFFFFFFFF).astype(np.uint32), avg=32)
+    rows.append(_probe_timed("avg32_m2e25", to_device(small, device), shift,
+                             PROBE_QUERIES, gen, filler))
+    emit({"phase": "probe_cases", "rows": rows})
+    return rows
 
 
 def main() -> int:
@@ -1533,6 +1768,7 @@ def main() -> int:
     runs["mesh"] = phase_mesh(device, smi, rate)
     runs["tools"] = [phase_tools(smi, rate, walker_rate, minikeys_rate)]
     launches = phase_path_shapes(device, runs, stats)
+    phase_probe_cases(device, runs)
     leaked = sorted(n for n in sys.modules
                     if n == "jax" or n.startswith("jax.")
                     or n.split(".")[0] == "keyhunt_tpu")

@@ -29,7 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)),
                           "build", "keyhunt_tpu_torch")
 SOURCES = ("field_kernels.cu", "jacwalk.cu", "hash160.cu", "bench_vpu.cu",
-           "field_latency.cu")
+           "field_latency.cu", "probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "kh_vpu_dependent": [_VP, _VP, _I64, _VP],
     "kh_vpu_rotate_mix": [_VP, _VP, _I64, _VP],
     "kh_field_latency": [_VP, _VP, _VP, _VP],
+    "kh_probe_packed": [_VP] * 5 + [_I64, _I64, _INT, _INT, _I64, _VP],
 }
 
 #: kernel launches by kernel name, and by (kernel name, elements per
@@ -68,7 +69,8 @@ def reset_launches() -> None:
 
 def count_launch(name: str, n) -> None:
     """Count one launch of kernel `name` at width n: its element (lane)
-    count, or for K4 the pair (lanes, steps)."""
+    count, for K4 the pair (lanes, steps), for P1 the pair (queries,
+    maxlen)."""
     LAUNCHES[name] += 1
     LAUNCH_WIDTHS[name, n] += 1
 

@@ -15,9 +15,14 @@ the bucket prefix `starts` (search.bsgs.decode_packed_pos). The ranged
 probes serve a partition of the slab rows (BSGS `table_partitions`) and
 report global positions; the flat probe serves a flat slab.
 
-The probe and the top-k were plain jnp in the JAX package (no Pallas
-kernel), so they are plain PyTorch here, on every device. On device they
-take int32 bit-pattern tensors; positions and payloads are int64.
+The probes and the top-k were plain jnp in the JAX package (no Pallas
+kernel). The packed probes (`probe_buckets_packed`, `_flat`, `_ranged`)
+launch the port's own kernel P1 (``csrc/probe.cu``, `probe_packed_cuda`)
+for CUDA tensors: one launch over all queries, no (queries, maxlen)
+temporary. CPU tensors take their plain PyTorch versions (`*_plain`),
+which are also P1's yardstick. The walker's two-word probes and the top-k
+are plain PyTorch on every device. Tensors hold int32 bit patterns;
+positions and payloads are int64.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from .u256 import widen, narrow
 
 
@@ -76,7 +82,7 @@ def probe_buckets(slab0: torch.Tensor, slab1: torch.Tensor, w0: torch.Tensor,
     gather per slab and a compare over the bucket; pos = bucket*maxlen +
     first matching slot. Exact (the whole bucket is scanned). The gathers
     materialise (queries, maxlen) temporaries, so the queries run in
-    `chunks` sequential slices (search.bsgs.probe_chunks_for sizes them)."""
+    `chunks` sequential slices (`probe_chunks_for` sizes them)."""
     maxlen = slab0.shape[1]
     hits, poss = [], []
     for a, b in zip(w0.chunk(chunks), w1.chunk(chunks)):
@@ -121,19 +127,115 @@ def build_buckets_packed(t0, t1, avg: int = 256):
     return slab.reshape(nb, maxlen), starts, shift
 
 
-def probe_buckets_packed(slab: torch.Tensor, w0: torch.Tensor,
-                         w1: torch.Tensor, shift: int):
+def probe_chunks_for(queries: int, maxlen: int,
+                     budget_bytes: int = 3 << 29) -> int:
+    """Sequential chunks so a plain probe's (queries x maxlen) row-gather
+    temp stays under ~1.5 GiB. A power of two that divides `queries`
+    (capped at its largest power-of-two divisor; keyhunt_tpu could return
+    a count that does not divide it)."""
+    rows_bytes = queries * maxlen * 4
+    chunks = 1
+    while rows_bytes // chunks > budget_bytes and chunks < queries:
+        chunks *= 2
+    return min(chunks, queries & -queries)
+
+
+def _in_chunks(probe_one, maxlen: int, w0: torch.Tensor, w1: torch.Tensor):
+    """(hit, pos) of the plain probe `probe_one(a, b)` run over
+    `probe_chunks_for` sequential slices of the queries."""
+    chunks = probe_chunks_for(int(w0.shape[0]), maxlen)
+    out = [probe_one(a, b) for a, b in zip(w0.chunk(chunks), w1.chunk(chunks))]
+    return torch.cat([h for h, _ in out]), torch.cat([p for _, p in out])
+
+
+def probe_buckets_packed_plain(slab: torch.Tensor, w0: torch.Tensor,
+                               w1: torch.Tensor, shift: int):
     """(hit bool, pos int64) for each query: one slab-row gather and a
     residual compare; pos = bucket*maxlen + first matching slot. The
-    gather materialises a (queries, maxlen) temporary, so callers chunk
-    large query sets (search.bsgs.probe_chunks_for)."""
+    gather materialises a (queries, maxlen) temporary, so the queries run
+    in `probe_chunks_for` slices."""
     maxlen = slab.shape[1]
-    bidx = widen(w0) >> shift
-    res = pack_residual(w0, w1, shift)
-    eq = slab[bidx] == res.unsqueeze(1)                # (Q, maxlen)
-    hit = eq.any(dim=1)
-    slot = torch.argmax(eq.to(torch.uint8), dim=1)     # first match
-    return hit, bidx * maxlen + slot
+
+    def probe_one(a, b):
+        bidx = widen(a) >> shift
+        eq = slab[bidx] == pack_residual(a, b, shift).unsqueeze(1)
+        slot = torch.argmax(eq.to(torch.uint8), dim=1)     # first match
+        return eq.any(dim=1), bidx * maxlen + slot
+
+    return _in_chunks(probe_one, maxlen, w0, w1)
+
+
+def probe_buckets_packed_ranged_plain(slab: torch.Tensor, w0: torch.Tensor,
+                                      w1: torch.Tensor, shift: int, base: int):
+    """The packed probe against a PARTITION: slab holds the rows of global
+    buckets [base, base + per). Queries outside it miss; pos is GLOBAL
+    (global bucket * maxlen + slot), as over the whole slab."""
+    per, maxlen = slab.shape
+
+    def probe_one(a, b):
+        gb = widen(a) >> shift
+        lb = gb - base
+        mine = (lb >= 0) & (lb < per)
+        res = pack_residual(a, b, shift)
+        eq = (slab[lb.clamp(0, per - 1)] == res.unsqueeze(1)) & mine.unsqueeze(1)
+        slot = torch.argmax(eq.to(torch.uint8), dim=1)
+        return eq.any(dim=1), gb * maxlen + slot
+
+    return _in_chunks(probe_one, maxlen, w0, w1)
+
+
+def check_probe(slab: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor) -> int:
+    """Validate P1's operands: a contiguous (rows, maxlen) int32 slab and
+    two contiguous int32 query vectors of one length, all on one CUDA
+    device. Returns the query count."""
+    if slab.dim() != 2 or 0 in slab.shape:
+        raise ValueError(f"slab must be a non-empty (rows, maxlen) matrix, "
+                         f"got {tuple(slab.shape)}")
+    if w0.dim() != 1 or w0.shape != w1.shape or w0.shape[0] == 0:
+        raise ValueError(f"w0 and w1 must be two non-empty vectors of one "
+                         f"length, got {tuple(w0.shape)} and {tuple(w1.shape)}")
+    for t in (slab, w0, w1):
+        if t.dtype != torch.int32:
+            raise TypeError(f"probe operand dtype {t.dtype}, expected int32")
+        if not t.is_contiguous():
+            raise ValueError("probe operand is not contiguous")
+        if t.device != slab.device:
+            raise ValueError(f"probe operands on {slab.device} and {t.device}")
+    if slab.device.type != "cuda":
+        raise ValueError(f"probe operand on {slab.device}, expected cuda")
+    return int(w0.shape[0])
+
+
+def probe_packed_cuda(slab: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                      shift: int, base: int = 0):
+    """Kernel P1 on CUDA tensors: `probe_buckets_packed_ranged_plain`'s
+    (hit, pos) for a slab holding global bucket rows [base, base + rows)
+    (base 0 and the whole slab: `probe_buckets_packed_plain`'s), in one
+    launch over all queries with no temporary."""
+    n = check_probe(slab, w0, w1)
+    if not 0 < shift < 32:
+        raise ValueError(f"bucket shift {shift} outside [1, 31]")
+    rows, maxlen = slab.shape
+    hit = torch.empty(n, dtype=torch.bool, device=slab.device)
+    pos = torch.empty(n, dtype=torch.int64, device=slab.device)
+    _build.launch("probe", "kh_probe_packed", slab.device, slab.data_ptr(),
+                  w0.data_ptr(), w1.data_ptr(), hit.data_ptr(), pos.data_ptr(),
+                  n, rows, maxlen, shift, int(base))
+    _build.count_launch("probe_packed", (n, maxlen))
+    return hit, pos
+
+
+def probe_buckets_packed(slab: torch.Tensor, w0: torch.Tensor,
+                         w1: torch.Tensor, shift: int):
+    """(hit bool, pos int64) for each query against a whole packed slab:
+    pos = bucket*maxlen + first matching slot (bucket*maxlen on a miss).
+    Kernel P1 for CUDA tensors, `probe_buckets_packed_plain` for CPU
+    tensors."""
+    if slab.device.type == "cuda":
+        return probe_packed_cuda(slab, w0, w1, shift)
+    if slab.device.type != "cpu":
+        raise ValueError(f"no packed-probe path for device {slab.device}")
+    return probe_buckets_packed_plain(slab, w0, w1, shift)
 
 
 def probe_buckets_packed_flat(slab_flat: torch.Tensor, maxlen: int,
@@ -146,18 +248,14 @@ def probe_buckets_packed_flat(slab_flat: torch.Tensor, maxlen: int,
 
 def probe_buckets_packed_ranged(slab: torch.Tensor, w0: torch.Tensor,
                                 w1: torch.Tensor, shift: int, base: int):
-    """The packed probe against a PARTITION: slab holds the rows of global
-    buckets [base, base + per). Queries outside it miss; pos is GLOBAL
-    (global bucket * maxlen + slot), as over the whole slab."""
-    per, maxlen = slab.shape
-    gb = widen(w0) >> shift
-    lb = gb - base
-    mine = (lb >= 0) & (lb < per)
-    res = pack_residual(w0, w1, shift)
-    eq = (slab[lb.clamp(0, per - 1)] == res.unsqueeze(1)) & mine.unsqueeze(1)
-    hit = eq.any(dim=1)
-    slot = torch.argmax(eq.to(torch.uint8), dim=1)
-    return hit, gb * maxlen + slot
+    """The packed probe against a partition holding global bucket rows
+    [base, base + per): queries outside it miss; pos is GLOBAL. Kernel P1
+    for CUDA tensors, `probe_buckets_packed_ranged_plain` for CPU tensors."""
+    if slab.device.type == "cuda":
+        return probe_packed_cuda(slab, w0, w1, shift, base)
+    if slab.device.type != "cpu":
+        raise ValueError(f"no packed-probe path for device {slab.device}")
+    return probe_buckets_packed_ranged_plain(slab, w0, w1, shift, base)
 
 
 def probe_buckets_ranged(slab0: torch.Tensor, slab1: torch.Tensor,

@@ -38,7 +38,7 @@ from ..device import to_device
 from ..ops import jacwalk, match
 from ..ref import ecc
 from ..search.bsgs import (DEGEN_SLOTS, BabyTable, BsgsConfig,
-                           decode_packed_pos, probe_chunks_for)
+                           decode_packed_pos)
 from ..trace import span
 from .mesh import Mesh
 
@@ -134,7 +134,6 @@ def make_sharded_giant_step(cfg: BsgsConfig, shards: ResidentShards,
     D = mesh.size
     B, S, K = cfg.lanes, cfg.steps, cfg.max_hits
     Ll = n_targets * B
-    chunks = probe_chunks_for(D * S * Ll, shards.maxlen)
     negadv = ecc.ec_neg(ecc.ec_mul(D * B * cfg.stride))   # global advance
 
     def local_walk(i, X, Y, Z):
@@ -151,16 +150,10 @@ def make_sharded_giant_step(cfg: BsgsConfig, shards: ResidentShards,
     def local_probe(i, w0, w1):
         dev = mesh.devices[i]
         w0, w1 = w0.to(dev), w1.to(dev)
-        hits, poss = [], []
         with span("bsgs.probe"):
-            for a, b in zip(w0.chunk(chunks), w1.chunk(chunks)):
-                h, p = match.probe_buckets_packed_ranged(
-                    shards.slabs[i], a, b, shards.shift, shards.bases[i])
-                hits.append(h)
-                poss.append(p)
-        hit = torch.cat(hits)
-        return torch.stack([hit.to(torch.int64),
-                            torch.where(hit, torch.cat(poss) + 1, 0)])
+            hit, pos = match.probe_buckets_packed_ranged(
+                shards.slabs[i], w0, w1, shards.shift, shards.bases[i])
+        return torch.stack([hit.to(torch.int64), torch.where(hit, pos + 1, 0)])
 
     def run(Xs, Ys, Zs):
         walked = [local_walk(i, *xyz) for i, xyz in enumerate(zip(Xs, Ys, Zs))]

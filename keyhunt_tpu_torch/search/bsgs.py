@@ -50,6 +50,7 @@ from ..io.results import ResultSink
 from ..ref import ecc
 from ..stats import SpeedMeter, si
 from ..ops import curve, field, jacwalk, match, u256
+from ..ops.match import probe_chunks_for  # noqa: F401  (sizing helper)
 from ..trace import span
 
 #: degenerate-lane report slots per step (lanes whose point x-equals the
@@ -418,27 +419,15 @@ def bucket_partitions(tbl: BabyTable, parts: int):
         starts, shift
 
 
-def probe_chunks_for(queries: int, maxlen: int,
-                     budget_bytes: int = 3 << 29) -> int:
-    """Sequential probe chunks so the (queries x maxlen) row-gather temp
-    stays under ~1.5 GiB. A power of two that divides `queries` (capped
-    at its largest power-of-two divisor; keyhunt_tpu could return a
-    count that does not divide it)."""
-    rows_bytes = queries * maxlen * 4
-    chunks = 1
-    while rows_bytes // chunks > budget_bytes and chunks < queries:
-        chunks *= 2
-    return min(chunks, queries & -queries)
-
-
 def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
-                       probe_chunks: int = 1, degen_slots: int = DEGEN_SLOTS):
+                       degen_slots: int = DEGEN_SLOTS):
     """The giant step over T*B Jacobian lanes:
     run(X, Y, Z, slab, base=None) -> (X', Y', Z', payload).
 
     K4 walks S steps and emits (X, Z) per step; `to_affine_x` (K3, K2, K1,
     norm) gives canonical affine X for all S*L queries; the packed probe
-    runs in `probe_chunks` slices, against the whole slab, or with `base`
+    (kernel P1 on CUDA) runs over all queries at once, against the whole
+    slab, or with `base`
     against a partition holding global bucket rows [base, base + rows)
     (`match.probe_buckets_packed_ranged`, keyhunt_tpu's `run_ranged`;
     positions stay global); hits and degenerate lanes are extracted
@@ -457,20 +446,15 @@ def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
         with span("bsgs.to_affine"):
             xa = jacwalk.to_affine_x(xs, zs)         # (8, S*L) canonical
         w0, w1 = xa[7], xa[6]                         # step-major queries
-        hits, poss = [], []
         with span("bsgs.probe"):
-            for a, b in zip(w0.chunk(probe_chunks), w1.chunk(probe_chunks)):
-                if base is None:
-                    h, p = match.probe_buckets_packed(slab, a, b, shift)
-                else:
-                    h, p = match.probe_buckets_packed_ranged(slab, a, b,
+            if base is None:
+                hit, pos = match.probe_buckets_packed(slab, w0, w1, shift)
+            else:
+                hit, pos = match.probe_buckets_packed_ranged(slab, w0, w1,
                                                              shift, base)
-                hits.append(h)
-                poss.append(p)
         with span("bsgs.topk"):
             flags = match.first_set(dg, degen_slots)
-            lanes, jsel, count = match.topk_with_payload(
-                torch.cat(hits), torch.cat(poss), K)
+            lanes, jsel, count = match.topk_with_payload(hit, pos, K)
             payload = torch.cat([lanes, jsel, count, flags.reshape(-1)])
         return Xo, Yo, Zo, payload
 
@@ -692,14 +676,10 @@ class BsgsEngine:
             from ..parallel.bsgs_sharded import make_sharded_giant_step
             return make_sharded_giant_step(cfg, self._resident, self.mesh,
                                            len(self.targets), degen_slots)
-        return make_giant_step_fn(cfg, *self._step_args, degen_slots=degen_slots)
+        return make_giant_step_fn(cfg, self._shift, degen_slots=degen_slots)
 
     def _set_step(self):
         """The step fn for the current lanes and targets."""
-        if not self.mesh:
-            q = self.cfg.steps * len(self.targets) * self.cfg.lanes
-            self._step_args = (self._shift,
-                               probe_chunks_for(q, int(self._slab.shape[1])))
         self.step_fn = self._make_step(self.cfg)
         self._wide_fns = {}     # (K, D) -> step fn of a block re-run
 

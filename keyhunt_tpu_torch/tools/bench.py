@@ -98,8 +98,8 @@ def _sync(device: torch.device) -> None:
 def bench_bsgs(args, emit=True):
     from ..ref import ecc
     from ..search.bsgs import (BsgsConfig, build_baby_table, load_table,
-                               make_giant_step_fn, probe_chunks_for,
-                               save_table, seed_lanes, table_path)
+                               make_giant_step_fn, save_table, seed_lanes,
+                               table_path)
     device = resolve_device(args.device)
     m = args.m
     os.makedirs(args.tmpdir, exist_ok=True)
@@ -124,9 +124,7 @@ def bench_bsgs(args, emit=True):
         print(f"[bench] baby table m=2^{cfg.m.bit_length() - 1} ready in "
               f"{time.time() - t_b:.1f}s", file=sys.stderr, flush=True)
     slab, _starts, shift = tbl.device_packed(device)
-    step = make_giant_step_fn(
-        cfg, shift, probe_chunks=probe_chunks_for(cfg.lanes * cfg.steps,
-                                                  int(slab.shape[1])))
+    step = make_giant_step_fn(cfg, shift)
     # one unreachable target point far outside the walked window
     px, py = seed_lanes(cfg, [ecc.pubkey((1 << 200) + 12345)],
                         c0=cfg.stride * cfg.lanes + 1)

@@ -113,8 +113,7 @@ def main(argv=None) -> int:
     # the step alone: 4 targets x 32768 lanes x 16 steps, no decode
     cfg = bsgs.BsgsConfig(m=m, lanes=LANES_TOTAL // 4, steps=STEPS)
     slab, _, shift = tbl.device_packed(device)
-    chunks = bsgs.probe_chunks_for(LANES_TOTAL * STEPS, int(slab.shape[1]))
-    step = bsgs.make_giant_step_fn(cfg, shift, probe_chunks=chunks)
+    step = bsgs.make_giant_step_fn(cfg, shift)
     px, py = bsgs.seed_lanes(cfg, [ecc.pubkey(k) for k in decoys], start)
     X, Y = u256.to_torch(px, device), u256.to_torch(py, device)
     Z = torch.zeros_like(X)
@@ -124,7 +123,7 @@ def main(argv=None) -> int:
     n, s = steady(lambda: step(X, Y, Z, slab), args.steady)
     points = n * LANES_TOTAL * STEPS / s
     _emit(out, {"stage": "steady", "dispatches": n, "seconds": s,
-                "probe_chunks": chunks, "ms_per_dispatch": 1e3 * s / n,
+                "ms_per_dispatch": 1e3 * s / n,
                 "giant_points_per_s": points, "keys_per_s": points * 2 * m,
                 "trace": profile_dispatches(lambda: step(X, Y, Z, slab), 3, "bsgs")})
     with open(args.out, "w") as fh:

@@ -166,8 +166,7 @@ def check_rate(n_cards: int, m: int, lanes: int, seconds: float) -> dict:
             z[0] = 1
         if D == 1:
             slab, _, shift = tbl.device_packed(dev0)
-            chunks = bsgs.probe_chunks_for(S * T * lanes, int(slab.shape[1]))
-            one = bsgs.make_giant_step_fn(cfg, shift, probe_chunks=chunks)
+            one = bsgs.make_giant_step_fn(cfg, shift)
 
             def step():
                 return one(Xs[0], Ys[0], Zs[0], slab)

@@ -255,7 +255,7 @@ def test_every_kernel_wrapper_launches_through_the_guard():
     itself: every launch goes through `_build.launch`."""
     ops = pathlib.Path(bs.__file__).resolve().parent.parent / "ops"
     wrappers = {p.name for p in ops.glob("*.py") if "_build.launch(" in p.read_text()}
-    assert wrappers == {"cuda_field.py", "cuda_hash.py", "jacwalk.py", "vpu.py"}
+    assert wrappers == {"cuda_field.py", "cuda_hash.py", "jacwalk.py", "match.py", "vpu.py"}
     for p in ops.glob("*.py"):
         text = p.read_text()
         assert "current_stream" not in text and "_build.entry(" not in text, p.name
