@@ -24,8 +24,11 @@ class ResultSink:
         self.quiet = quiet
         self.found: list[dict] = []
 
-    def record(self, key: int, mode: str, compressed: bool | None = None):
-        pt = ecc.pubkey(key)
+    def record(self, key: int, mode: str, compressed: bool | None = None,
+               pt: ecc.Point | None = None):
+        """Report `key`; `pt`, where the caller holds it, is key*G, which
+        is then not computed again (a Python scalar multiplication)."""
+        pt = ecc.pubkey(key) if pt is None else pt
         lines = [f"Private key (hex): {key:064x}"]
         if mode == "eth":
             addr = "0x" + eth_address(pt[0], pt[1]).hex()

@@ -523,11 +523,14 @@ class BsgsEngine:
     with more than one shard in all, each of the D shards walks B lanes
     per target and holds 1/D of the table (keyhunt_tpu's `devices`).
     Counts what it did: `dispatches`, `giant_points`, `probe_hits`,
-    `false_hits` (probe hits that verified no key) and `run_seconds` (the
-    last `run()`'s wall time, drains included). Its host stages run in
-    `trace.span`s: bsgs.run, .seed, .dispatch (around the step's spans),
-    .fetch, .drain_wait (the wait on the device alone), .decode, .rerun
-    and .dropout."""
+    `false_hits` (probe hits that verified no key), `ec_checks` (candidate
+    keys whose point was computed to check them, re-runs included),
+    `oracle_checks` (those the Python oracle computed, where the native
+    library is not built) and `run_seconds` (the last `run()`'s wall
+    time, drains included). Its host stages run in `trace.span`s:
+    bsgs.run, .seed, .dispatch (around the step's spans), .fetch,
+    .drain_wait (the wait on the device alone), .decode, .rerun and
+    .dropout."""
 
     #: in-flight dispatches before the oldest payload is drained
     PIPELINE = 3
@@ -565,6 +568,7 @@ class BsgsEngine:
         self.rng = random.Random(rng_seed)
         self.dispatches = self.giant_points = 0
         self.probe_hits = self.false_hits = 0
+        self.ec_checks = self.oracle_checks = 0
         self.run_seconds = 0.0
         self._passes = self._build_passes()
         self._set_pass(self._passes[0])
@@ -771,22 +775,36 @@ class BsgsEngine:
             return tuple([to_device(np.ascontiguousarray(c[:, self.mesh.first + i]), dev)
                           for i, dev in enumerate(self.mesh.devices)] for c in cols)
 
-    def _record(self, t: int, key: int) -> bool:
-        """Record `key` for target t unless it is already found; returns
-        whether the key's X is the target's (the candidate was a true
-        hit)."""
-        key %= ecc.N
-        pt = ecc.pubkey(key)
-        if pt[0] != self.targets[t][0]:
+    def _points(self, keys: list[int]) -> list:
+        """The points k*G (None for k = 0) of keys already reduced mod N:
+        one native batch, or the Python oracle key by key where the native
+        library is not built."""
+        self.ec_checks += len(keys)
+        if native.available():
+            return native.pubkey_batch(keys)
+        self.oracle_checks += len(keys)
+        return [ecc.ec_mul(k) for k in keys]
+
+    def _accept(self, t: int, key: int, pt) -> bool:
+        """Record `key` (mod N, its point `pt`) for target t unless the
+        target is already found; returns whether the key's X is the
+        target's (the candidate was a true hit)."""
+        if pt is None or pt[0] != self.targets[t][0]:
             return False
         orig = self._tmap[t]
         if orig not in self.found:
-            # fix the sign: X matches both key and N-key
+            # fix the sign: X matches both key and N-key; key*G is then
+            # the target
             if pt != self.targets[t]:
                 key = ecc.N - key
             self.found[orig] = key
-            self.sink.record(key, "btc", compressed=True)
+            self.sink.record(key, "btc", compressed=True, pt=self.targets[t])
         return True
+
+    def _record(self, t: int, key: int) -> bool:
+        """`_accept` for one key (a seeded lane's exact landing)."""
+        key %= ecc.N
+        return self._accept(t, key, self._points([key])[0])
 
     # scheduler: yields c0 for successive dispatch blocks ------------------
 
@@ -959,7 +977,8 @@ class BsgsEngine:
         """Record the keys of a fetched payload with K hit slots and D flag
         slots per step (per shard and step on a mesh); returns (hit count,
         whether a flag row is full), which tell `_drain` whether slots
-        overflowed."""
+        overflowed. Only the filled slots are read, and every candidate
+        key of the payload is checked in one `_points` batch."""
         with span("bsgs.decode"):
             cfg = self.cfg
             DB = self.n_devices * cfg.lanes       # global lanes per target
@@ -967,32 +986,36 @@ class BsgsEngine:
             lanes, jsel = arr[:K], arr[K:2 * K]
             nhits = int(arr[2 * K])
             flags = arr[2 * K + 1:].reshape(-1, D)     # rows d*S + s
-            if nhits > 0:
-                for k in range(K):
-                    g = int(lanes[k])
-                    if g < 0:
-                        continue
-                    s, r = divmod(g, Lg)
-                    t, lane = self._global_lane(r)
-                    c = c0 + (lane + s * DB) * cfg.stride
-                    # jsel is the padded slab position (None: sentinel slot)
-                    j = self._pos_to_j(int(jsel[k]))
-                    self.probe_hits += 1
-                    if j is None or not (self._record(t, c - j)
-                                         | self._record(t, c + j)):
-                        self.false_hits += 1
+            if nhits == 0 and flags.max() < 0:
+                return 0, False             # the usual payload: no hit, no flag
+            filled = flags >= 0
+            # candidates (t, key) in the order they are accepted: c - j,
+            # c + j of each hit, then c +- DB*stride of each flag
+            cands, pairs = [], []
+            for k in np.flatnonzero(lanes >= 0).tolist():
+                s, r = divmod(int(lanes[k]), Lg)
+                t, lane = self._global_lane(r)
+                c = c0 + (lane + s * DB) * cfg.stride
+                # jsel is the padded slab position (None: sentinel slot)
+                j = self._pos_to_j(int(jsel[k]))
+                self.probe_hits += 1
+                if j is None:
+                    self.false_hits += 1
+                else:
+                    pairs.append(len(cands))
+                    cands += [(t, c - j), (t, c + j)]
             # degenerate-lane flags: P == +-advance point, Q = (c +- DB*stride)*G
-            for row in range(flags.shape[0]):
-                s = row % cfg.steps
-                for g in flags[row]:
-                    g = int(g)
-                    if g < 0:
-                        continue
-                    t, lane = self._global_lane(g)
-                    c = c0 + (lane + s * DB) * cfg.stride
-                    self._record(t, c + DB * cfg.stride)
-                    self._record(t, c - DB * cfg.stride)
-            return nhits, bool((flags[:, -1] >= 0).any())
+            # (Python ints: c0 may pass 2^63)
+            for row, slot in zip(*(a.tolist() for a in np.nonzero(filled))):
+                t, lane = self._global_lane(int(flags[row, slot]))
+                c = c0 + (lane + (row % cfg.steps) * DB) * cfg.stride
+                cands += [(t, c + DB * cfg.stride), (t, c - DB * cfg.stride)]
+            if cands:
+                keys = [key % ecc.N for _, key in cands]
+                true = [self._accept(t, key, pt) for (t, _), key, pt
+                        in zip(cands, keys, self._points(keys))]
+                self.false_hits += sum(not (true[i] or true[i + 1]) for i in pairs)
+            return nhits, bool(filled[:, -1].any())
 
 
 # ---------------------------------------------------------------------------
@@ -1107,7 +1130,8 @@ def run_bsgs_cli(args, device: torch.device) -> int:
               f"({1e3 * secs / max(eng.dispatches, 1):.3f} ms per dispatch, "
               f"{eng.giant_points / secs:.4e} giant points/s, drains "
               f"included); {eng.probe_hits} probe hits, {eng.false_hits} "
-              f"false positives", flush=True)
+              f"false positives, {eng.ec_checks} EC checks "
+              f"({eng.oracle_checks} on the Python oracle)", flush=True)
         if args.dtable:
             print(f"[+] device table: {tbl.find_j_calls} find_j re-walks in "
                   f"{tbl.find_j_seconds:.3f} s", flush=True)

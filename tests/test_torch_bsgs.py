@@ -6,6 +6,8 @@ CPU, held against keyhunt_tpu and the Python EC oracle.
   port, on the same table (carried across with `table_from_arrays`) and
   the same seeded lanes, gives the same payload and the same final state;
 - the engine and the CLI (`--device cpu`) find planted keys;
+- the decode checks a payload's candidate keys in one native batch, and
+  the Python oracle's path records and counts the same;
 - tables saved by either package load in the other;
 - three tests named `test_divergence_*` pin intended divergences from
   keyhunt_tpu, whose reference defects the port fixes.
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from keyhunt_tpu.search import bsgs as jb
-from keyhunt_tpu_torch import cli
+from keyhunt_tpu_torch import cli, native
 from keyhunt_tpu_torch.io.results import ResultSink
 from keyhunt_tpu_torch.ref import ecc
 from keyhunt_tpu_torch.ops import field, u256
@@ -92,8 +94,154 @@ def test_giant_step_matches_jax(table):
 
 def test_engine_finds_planted_keys(table, tmp_path):
     keys = [5000, 12345, 777]
-    found = _engine(table, keys, 1, 16384, tmp_path).run()
+    eng = _engine(table, keys, 1, 16384, tmp_path)
+    found = eng.run()
     assert sorted(found.values()) == sorted(keys)
+    # every probe hit checks its two candidates; seeding's landings add more
+    assert eng.probe_hits > 0 and eng.ec_checks >= 2 * eng.probe_hits
+    assert eng.oracle_checks == (0 if native.available() else eng.ec_checks)
+
+
+def test_engine_oracle_path_counts_as_native(table, tmp_path, monkeypatch):
+    """The same run with the native library and with the Python oracle
+    (`native.available` false): the same keys and counts, and every check
+    of the second on the oracle."""
+    if not native.available():
+        pytest.skip("no C++ compiler: the native library is not built")
+    keys = [5000, 12345, 777, 257 + 512 * 3]          # the last on a centre
+    runs = []
+    for oracle in (False, True):
+        with monkeypatch.context() as mp:
+            if oracle:
+                mp.setattr(bsgs.native, "available", lambda: False)
+            (tmp_path / str(oracle)).mkdir()
+            eng = _engine(table, keys, 1, 16384, tmp_path / str(oracle))
+            runs.append((eng.run(), eng.probe_hits, eng.false_hits,
+                         eng.ec_checks, eng.oracle_checks))
+    (found, probe, false, ec, orc), oracle_run = runs
+    assert sorted(found.values()) == sorted(keys) and orc == 0
+    assert oracle_run == (found, probe, false, ec, ec)
+
+
+@pytest.mark.parametrize("mode, compressed", [("btc", True), ("btc", None),
+                                               ("eth", None)])
+def test_sink_record_with_point_writes_the_same(tmp_path, mode, compressed):
+    """A sink handed key*G (as the BSGS engine hands it) writes what it
+    writes when it computes the point itself."""
+    key = ecc.N - 0x3a7e9
+    texts = []
+    for pt in (None, ecc.pubkey(key)):
+        path = tmp_path / f"{pt is None}.txt"
+        ResultSink(path=str(path), quiet=True).record(key, mode, compressed, pt=pt)
+        texts.append(path.read_text())
+    assert texts[0] == texts[1] and f"{key:064x}" in texts[0]
+
+
+class _Sink:
+    """The keys an engine records, in order, with the points it hands over."""
+
+    def __init__(self):
+        self.keys, self.points = [], []
+
+    def record(self, key, mode, compressed=None, pt=None):
+        self.keys.append(key)
+        self.points.append(pt)
+
+
+# `_decode` on hand-built payloads: m = 256 (stride 512), B = 4 lanes,
+# S = 2 steps, 2 targets, block c0 = 257, so the centre of key lane l at
+# step s is 257 + (l + s*DB)*512 (DB: lanes a target over all shards).
+# A hit is (s, t, shard lane b, j, shard d); a flag (s, t, b, d). Slab
+# positions decode to j = pos - 1000, and SENTINEL to None.
+_C0, _STRIDE, _B, _S, _T, SENTINEL = 257, 512, 4, 2, 2, 7
+_N = ecc.N
+_DECODE_CASES = {
+    # name: (shards, target keys, hits, flags, found before, want)
+    # want: found, probe_hits, false_hits, ec_checks, recorded, _decode's return
+    "empty": (1, [5000, 123456789], [], [], {},
+              ({}, 0, 0, 0, [], (0, False))),
+    "true_minus": (1, [3329 - 100, 123456789], [(1, 0, 2, 100, 0)], [], {},
+                   ({0: 3229}, 1, 0, 2, [3229], (1, False))),
+    "true_plus": (1, [5000, 1793 + 77], [(0, 1, 3, 77, 0)], [], {},
+                  ({1: 1870}, 1, 0, 2, [1870], (1, False))),
+    "negated": (1, [_N - (2817 + 200), 5000], [(1, 0, 1, 200, 0)], [], {},
+                ({0: _N - 3017}, 1, 0, 2, [_N - 3017], (1, False))),
+    "false": (1, [5000, 123456789], [(0, 0, 0, 5, 0)], [], {},
+              ({}, 1, 1, 2, [], (1, False))),
+    "sentinel": (1, [5000, 123456789], [(0, 1, 1, None, 0)], [], {},
+                 ({}, 1, 1, 0, [], (1, False))),
+    "degenerate": (1, [5000, 3329 + 4 * 512], [], [(1, 1, 2, 0)], {},
+                   ({1: 5377}, 0, 0, 2, [5377], (0, False))),
+    "already_found": (1, [3229, 123456789], [(1, 0, 2, 100, 0)], [], {0: 999},
+                      ({0: 999}, 1, 0, 2, [], (1, False))),
+    "found_twice": (1, [3229, 123456789], [(1, 0, 2, 100, 0), (1, 0, 1, 412, 0)],
+                    [], {}, ({0: 3229}, 2, 0, 4, [3229], (2, False))),
+    "mixed": (1, [3229, 1793 + 4 * 512],
+              [(1, 0, 2, 100, 0), (0, 1, 0, 9, 0), (0, 1, 1, None, 0)],
+              [(0, 1, 3, 0)], {},
+              ({0: 3229, 1: 3841}, 3, 2, 6, [3229, 3841], (3, False))),
+    # 2 shards, DB = 8: a hit in shard 1 (key lane 4 + 3), a flag of shard 1
+    # at step 0 (key lane 4 + 1)
+    "mesh": (2, [2817 + 8 * 512, 7937 - 31], [(1, 1, 3, 31, 1)],
+             [(0, 0, 1, 1)], {},
+             ({0: 6913, 1: 7906}, 1, 0, 4, [7906, 6913], (1, False))),
+    # a step's 4 flag slots all filled: _decode reports the full row
+    "full_flags": (1, [257 + 2 * 512 + 4 * 512, 123456789], [],
+                   [(0, 0, b, 0) for b in range(4)], {},
+                   ({0: 3329}, 0, 0, 8, [3329], (0, True))),
+}
+
+
+@pytest.mark.parametrize("case", list(_DECODE_CASES))
+@pytest.mark.parametrize("path", ["native", "oracle"])
+def test_decode_checks_candidates_in_one_batch(table, monkeypatch, case, path):
+    """Each hand-built payload gives the same keys, counts and return on
+    the native path and on the Python oracle's (`native.available`
+    false); the native path makes one `native.pubkey_batch` call for
+    the whole payload, and a payload with no candidate makes no EC call."""
+    if path == "native" and not native.available():
+        pytest.skip("no C++ compiler: the native library is not built")
+    shards, keys, hits, flags, before, want = _DECODE_CASES[case]
+    cfg = bsgs.BsgsConfig(m=M, lanes=_B, steps=_S)
+    sink = _Sink()
+    eng = bsgs.BsgsEngine(cfg, table, [ecc.pubkey(k) for k in keys], 1, 1 << 20,
+                          sink=sink, quiet=True, device="cpu", devices=shards)
+    eng._pos_to_j = lambda pos: None if pos == SENTINEL else pos - 1000
+    eng.found.update(before)
+    K, D = cfg.max_hits, bsgs.DEGEN_SLOTS
+    arr = np.full(2 * K + 1 + shards * _S * D, -1, np.int64)
+    for k, (s, t, b, j, d) in enumerate(hits):
+        arr[k] = s * _T * shards * _B + (d * _T + t) * _B + b
+        arr[K + k] = SENTINEL if j is None else 1000 + j
+    arr[2 * K] = len(hits)
+    rows = arr[2 * K + 1:].reshape(-1, D)
+    for s, t, b, d in flags:
+        row = rows[d * _S + s]
+        row[(row >= 0).sum()] = (d * _T + t) * _B + b
+    found, probe, false, ec, recorded, want_ret = want
+    points = [ecc.pubkey(k) for k in recorded]
+    calls = {"batch": 0, "oracle": 0}
+
+    def counted(fn, name):
+        def call(*a):
+            calls[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(bsgs.native, "pubkey_batch",
+                        counted(bsgs.native.pubkey_batch, "batch"))
+    monkeypatch.setattr(bsgs.ecc, "ec_mul", counted(bsgs.ecc.ec_mul, "oracle"))
+    if path == "oracle":
+        monkeypatch.setattr(bsgs.native, "available", lambda: False)
+    ret = eng._decode(_C0, arr, K, D)
+    assert (eng.found, eng.probe_hits, eng.false_hits, eng.ec_checks,
+            sink.keys, ret) == (found, probe, false, ec, recorded, want_ret)
+    # each recorded key comes with its own point, so the sink computes none
+    assert sink.points == points
+    if path == "native":
+        assert eng.oracle_checks == 0 and calls == {"batch": int(ec > 0), "oracle": 0}
+    else:
+        assert eng.oracle_checks == ec and calls == {"batch": 0, "oracle": ec}
 
 
 @pytest.mark.parametrize("sched", ["backward", "both", "random", "dance",
