@@ -576,8 +576,7 @@ def _probe_timed(name: str, slab, shift: int, n: int, gen, filler,
     from keyhunt_tpu_torch.ops.u256 import widen
     rows, maxlen = slab.shape
     b0 = 0 if base is None else base
-    plain = (match.probe_buckets_packed_ranged_plain if base is not None else
-             lambda s, a, b, sh, _: match.probe_buckets_packed_plain(s, a, b, sh))
+    plain = match.probe_buckets_packed_plain
 
     def operands():
         return (slab, *_probe_queries(gen, slab, shift, n, b0), shift, b0)
@@ -952,7 +951,7 @@ def _cli_run(rundir: str, argv: list[str],
             "last_line": lines[-1] if lines else ""}
 
 
-# the BSGS CLI's summary lines (`run_bsgs_cli`, `dtable.build_device_table`)
+# the BSGS CLI's summary lines (`cli.run_bsgs_cli`, `dtable.build_device_table`)
 _REPORT = re.compile(r"\[\+\] (BSGS: \d+ dispatches|device table m=|"
                      r"device table: \d+ find_j)")
 _REPORT_FIELDS = (
@@ -1106,25 +1105,25 @@ def phase_rate(device, smi):
     from keyhunt_tpu_torch.search import bsgs
     from keyhunt_tpu_torch.trace import profile_dispatches, steady
     m = 1 << M_LOG2
-    tbl = bsgs.load_table(m, RUN_DIR)
-    slab, _, shift = tbl.device_packed(device)
+    res = bsgs.load_table(m, RUN_DIR).resident([device])
+    slab = res.slabs[0]
     T, B, S = 4, 32768, 16
     cfg = bsgs.BsgsConfig(m=m, lanes=B, steps=S)
-    step = bsgs.make_giant_step_fn(cfg, shift)
+    step = bsgs.make_giant_step_fn(cfg, res)
     targets = [ecc.pubkey(k) for k in _planted_keys()]
     px, py = bsgs.seed_lanes(cfg, targets, 1 + m)
     X, Y = u256.to_torch(px, device), u256.to_torch(py, device)
     Z = torch.zeros_like(X)
     Z[0] = 1
     for _ in range(2):                                  # warm-up
-        X, Y, Z, _ = step(X, Y, Z, slab)
-    n, secs = steady(lambda: step(X, Y, Z, slab))
+        X, Y, Z, _ = step(X, Y, Z)
+    n, secs = steady(lambda: step(X, Y, Z))
     points = n * T * B * S / secs
     out = {"phase": "rate", "card": smi, "dispatches": n, "seconds": secs,
            "lanes": T * B, "steps": S,
            "slab_shape": list(slab.shape), "ms_per_dispatch": 1e3 * secs / n,
            "giant_points_per_s": points, "keys_per_s": points * 2 * m,
-           "trace": profile_dispatches(lambda: step(X, Y, Z, slab), 5, "bsgs")}
+           "trace": profile_dispatches(lambda: step(X, Y, Z), 5, "bsgs")}
     emit(out)
     return out
 
@@ -1418,9 +1417,7 @@ def phase_mesh(device, smi, rate: dict) -> dict:
     from keyhunt_tpu_torch.io.results import ResultSink
     from keyhunt_tpu_torch.io.targets import load_hash160_file
     from keyhunt_tpu_torch.ops import u256
-    from keyhunt_tpu_torch.parallel.bsgs_sharded import (_upload_shards,
-                                                         make_sharded_giant_step,
-                                                         resident_shards)
+    from keyhunt_tpu_torch.parallel.bsgs_sharded import make_sharded_giant_step
     from keyhunt_tpu_torch.parallel.mesh import make_mesh
     from keyhunt_tpu_torch.ref import ecc
     from keyhunt_tpu_torch.search import bsgs
@@ -1451,12 +1448,13 @@ def phase_mesh(device, smi, rate: dict) -> dict:
     # engines bind the shards the runs above left cached on the table
     torch.cuda.synchronize()
     t0 = time.time()
-    _upload_shards(tbl, mesh, 0, 1)
+    layout = (mesh.devices, mesh.first, mesh.size)
+    tbl.resident(*layout, cache=False)
     torch.cuda.synchronize()
     upload = time.time() - t0
     srv = BsgsdServer(tbl, port=0, lanes=MESH_B, steps=16, device=device,
                       devices=mesh, result_path=os.devnull)
-    cached = resident_shards(tbl, mesh, cache=True)
+    cached = tbl.resident(*layout)
     query_s = []
     for _ in range(2):
         t0 = time.time()
@@ -1464,7 +1462,7 @@ def phase_mesh(device, smi, rate: dict) -> dict:
         query_s.append(time.time() - t0)
         if got != keys[-1]:
             raise AssertionError(f"daemon_mesh: got {got}, planted {keys[-1]}")
-    if resident_shards(tbl, mesh, cache=True) is not cached:
+    if tbl.resident(*layout) is not cached:
         raise AssertionError("daemon_mesh: the table's shards were uploaded again")
     out["daemon"] = {"shard_upload_seconds": upload, "query_seconds": query_s}
     emit({"phase": "mesh", "path": "daemon_mesh", **out["daemon"]})
@@ -1503,8 +1501,8 @@ def phase_mesh(device, smi, rate: dict) -> dict:
     # the rate: MESH_D shards x 4 targets x MESH_B lanes x 16 steps against
     # phase 4's one device at 4 x 32768 x 16: the same global lanes
     cfg = bsgs.BsgsConfig(m=m, lanes=MESH_B, steps=16)
-    step = make_sharded_giant_step(cfg, resident_shards(tbl, mesh, cache=True),
-                                   mesh, len(targets))
+    step = make_sharded_giant_step(cfg, cached, mesh, len(targets),
+                                   bsgs.DEGEN_SLOTS)
     wide = bsgs.BsgsConfig(m=m, lanes=MESH_D * MESH_B, steps=16)
     px, py = bsgs.seed_lanes(wide, targets, 1 + m)
     T = len(targets)

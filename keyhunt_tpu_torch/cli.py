@@ -255,21 +255,113 @@ def main(argv=None) -> int:
             raise SystemExit("[E] --create-mapped only applies to -m bsgs "
                              "(target caches build automatically on load)")
         return run_walker_cli(args, device)
-    from .search import bsgs
-
     if args.create_mapped is not None:
+        from .search import bsgs, table
         n_value = parse_int(args.nvalue) if args.nvalue else None
         m = bsgs.derive_m(n_value, args.kfactor)
-        path = args.ptable or bsgs.table_path(m, args.tmpdir)
-        if bsgs.load_table(m, path=path, verify=not args.skip_checksum):
+        path = args.ptable or table.table_path(m, args.tmpdir)
+        tbl, loaded = table.open_table(m, path, load=True, save=True,
+                                       verify=not args.skip_checksum,
+                                       device=device, progress=not args.quiet)
+        if loaded:
             print(f"[+] table {path} already exists", flush=True)
             return 0
-        tbl = bsgs.build_baby_table(m, progress=not args.quiet, device=device)
-        print(f"[+] saved baby table {bsgs.save_table(tbl, path=path)}",
-              flush=True)
+        print(f"[+] saved baby table {path}", flush=True)
         tbl.packed()        # also materialise the packed-slab sidecar
         return 0
-    return bsgs.run_bsgs_cli(args, device)
+    return run_bsgs_cli(args, device)
+
+
+def run_bsgs_cli(args, device: torch.device) -> int:
+    """-m bsgs: load the public keys, load or build the baby table (or
+    build it on the device with --dtable), size the lanes, run."""
+    from . import runtime, trace
+    from .io.targets import load_pubkeys_file
+    from .search import bsgs, table
+
+    # flag incompatibilities, exactly as the reference rejects them
+    # (keyhunt.cpp:1185-1194)
+    if getattr(args, "endomorphism", False):
+        raise SystemExit("[E] Endomorphism doesn't work with BSGS")
+    if parse_int(getattr(args, "stride", "1") or "1") != 1:
+        raise SystemExit("[E] Stride doesn't work with BSGS")
+    if not args.file:
+        raise SystemExit("[E] -f FILE with public keys required")
+    if not os.path.exists(args.file):
+        raise SystemExit(f"[E] can't open file {args.file}")
+    pts = load_pubkeys_file(args.file)
+    start, end = resolve_range(args)
+    devices = resolve_devices(args, device)
+    n_value = parse_int(args.nvalue) if args.nvalue else None
+    m = bsgs.derive_m(n_value, args.kfactor)
+    print(f"[+] BSGS: {len(pts)} pubkeys, m={m:#x}, range {start:#x}:{end:#x}, "
+          f"device {device}, devices {devices}", flush=True)
+    path = getattr(args, "ptable", None) or table.table_path(m, args.tmpdir)
+    if args.dtable:
+        # built in device memory: no disk, no upload (search.dtable)
+        if args.save or args.load_ptable:
+            raise SystemExit("[E] --dtable builds in device memory; "
+                             "-S/--load-ptable do not apply")
+        if args.table_partitions > 1 or devices > 1 or runtime.current():
+            raise SystemExit("[E] --dtable supports a single resident "
+                             "device for now")
+        from .search.dtable import build_device_table
+        tbl = build_device_table(m, progress=not args.quiet, device=device)
+    elif args.load_ptable:
+        tbl = table.load_table(m, path=path, verify=not args.skip_checksum)
+        if tbl is None:
+            raise SystemExit(f"[E] --load-ptable: no table {path}")
+        print(f"[+] loaded baby table {path}", flush=True)
+    else:
+        tbl, loaded = table.open_table(m, path, load=args.save, save=args.save,
+                                       verify=not args.skip_checksum,
+                                       device=device, progress=not args.quiet)
+        if args.save:
+            print(f"[+] {'loaded' if loaded else 'saved'} baby table {path}",
+                  flush=True)
+    scheduler = args.bsgs_mode
+    if args.bsgs_block_count or args.bsgs_block_size:
+        scheduler = "ggsb"                 # --bsgs-block-* implies -B ggsb
+    steps = max(int(args.steps or 16), 1)
+    lanes = int(args.lanes or 0)
+    if lanes <= 0:
+        while True:
+            try:
+                lanes = bsgs.auto_lanes(m, steps, start, end, n_targets=len(pts))
+                break
+            except ValueError as e:
+                # the 256-lane floor x target count exceeds the 2^21
+                # queries/call ceiling: shed steps first, then give up
+                if steps > 1:
+                    steps = max(steps // 2, 1)
+                    continue
+                raise SystemExit(f"[E] {e}")
+    cfg = bsgs.BsgsConfig(m=m, lanes=lanes, steps=steps, scheduler=scheduler,
+                          block_count=args.bsgs_block_count,
+                          block_size=args.bsgs_block_size,
+                          table_partitions=args.table_partitions)
+    eng = bsgs.BsgsEngine(cfg, tbl, pts, start, end, quiet=args.quiet,
+                          stats_every=args.stats, matrix=args.matrix,
+                          device=device, devices=devices)
+    spans = trace.totals()
+    found = eng.run(max_seconds=args.max_seconds)
+    if not args.quiet:
+        secs = max(eng.run_seconds, 1e-9)
+        print(f"[+] BSGS: {eng.dispatches} dispatches, {eng.giant_points} "
+              f"giant points in {eng.run_seconds:.3f} s "
+              f"({1e3 * secs / max(eng.dispatches, 1):.3f} ms per dispatch, "
+              f"{eng.giant_points / secs:.4e} giant points/s, drains "
+              f"included); {eng.probe_hits} probe hits, {eng.false_hits} "
+              f"false positives, {eng.ec_checks} EC checks "
+              f"({eng.oracle_checks} on the Python oracle)", flush=True)
+        if args.dtable:
+            print(f"[+] device table: {tbl.find_j_calls} find_j re-walks in "
+                  f"{tbl.find_j_seconds:.3f} s", flush=True)
+        print("[+] BSGS " + trace.stage_line(
+            "bsgs", ("seed", "dispatch", "fetch", "decode", "rerun", "dropout"),
+            spans), flush=True)
+    print(f"[+] BSGS done: {len(found)}/{len(pts)} keys found", flush=True)
+    return 0
 
 
 def run_walker_cli(args, device) -> int:

@@ -17,7 +17,8 @@ docstring says such lanes restart at C, but its code restarts them at G,
 and this port follows the code.
 
 `giant_scan` launches kernel K4 (``csrc/jacwalk.cu``) for CUDA tensors and
-runs `giant_scan_plain` for CPU tensors.
+runs `giant_scan_plain` for CPU tensors. `giant_walk_fn` is the walk stage
+of both BSGS giant steps, one device's and the mesh's.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from .. import _build
 from ..ref import ecc
+from ..trace import span
 from . import field, u256
 from .cuda_field import check_limbs
 
@@ -108,3 +110,21 @@ def to_affine_x(Xs, Zs):
     batched inversion: norm(X * (Z^-1)^2). On CUDA: K3, K2, K1, norm."""
     zi = field.batch_inv(Zs)
     return field.norm(field.mul(Xs, field.sqr(zi)))
+
+
+def giant_walk_fn(advance: int, steps: int):
+    """The walk stage of a BSGS giant step: run(X, Y, Z) -> (X', Y', Z',
+    xa, dg), the lanes after `steps` steps of -advance*G (`giant_scan`),
+    the canonical affine X (8, steps*L) of every emitted point
+    (`to_affine_x`) and the (steps, L) degenerate-lane mask, in the spans
+    bsgs.giant_scan and bsgs.to_affine."""
+    cx, cy = ecc.ec_neg(ecc.ec_mul(advance))
+
+    def run(X, Y, Z):
+        with span("bsgs.giant_scan"):
+            Xo, Yo, Zo, xs, zs, dg = giant_scan(X, Y, Z, cx, cy, steps)
+        with span("bsgs.to_affine"):
+            xa = to_affine_x(xs, zs)
+        return Xo, Yo, Zo, xa, dg
+
+    return run

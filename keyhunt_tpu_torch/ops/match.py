@@ -11,18 +11,19 @@ bits just below the bucket-index bits,
 with 0xFFFFFFFF sentinels padding each bucket row to maxlen; a query
 probes ONE slab row (its bucket, w0 >> shift) and compares residuals. A
 padded position is bucket*maxlen + slot; the host maps it back through
-the bucket prefix `starts` (search.bsgs.decode_packed_pos). The ranged
-probes serve a partition of the slab rows (BSGS `table_partitions`) and
-report global positions; the flat probe serves a flat slab.
+the bucket prefix `starts` (search.table.decode_packed_pos). A slab may
+hold a piece of the rows only, global buckets [base, base + rows) (BSGS
+table partitions and mesh shards): queries of other buckets miss, and
+positions stay global.
 
 The probes and the top-k were plain jnp in the JAX package (no Pallas
-kernel). The packed probes (`probe_buckets_packed`, `_flat`, `_ranged`)
-launch the port's own kernel P1 (``csrc/probe.cu``, `probe_packed_cuda`)
-for CUDA tensors: one launch over all queries, no (queries, maxlen)
-temporary. CPU tensors take their plain PyTorch versions (`*_plain`),
-which are also P1's yardstick. The walker's two-word probes and the top-k
-are plain PyTorch on every device. Tensors hold int32 bit patterns;
-positions and payloads are int64.
+kernel). The packed probe `probe_buckets_packed` launches the port's own
+kernel P1 (``csrc/probe.cu``, `probe_packed_cuda`) for CUDA tensors: one
+launch over all queries, no (queries, maxlen) temporary. CPU tensors take
+its plain PyTorch version (`probe_buckets_packed_plain`), which is also
+P1's yardstick. The walker's two-word probe and the top-k are plain
+PyTorch on every device. Tensors hold int32 bit patterns; positions and
+payloads are int64.
 """
 
 from __future__ import annotations
@@ -140,48 +141,27 @@ def probe_chunks_for(queries: int, maxlen: int,
     return min(chunks, queries & -queries)
 
 
-def _in_chunks(probe_one, maxlen: int, w0: torch.Tensor, w1: torch.Tensor):
-    """(hit, pos) of the plain probe `probe_one(a, b)` run over
-    `probe_chunks_for` sequential slices of the queries."""
-    chunks = probe_chunks_for(int(w0.shape[0]), maxlen)
-    out = [probe_one(a, b) for a, b in zip(w0.chunk(chunks), w1.chunk(chunks))]
-    return torch.cat([h for h, _ in out]), torch.cat([p for _, p in out])
-
-
 def probe_buckets_packed_plain(slab: torch.Tensor, w0: torch.Tensor,
-                               w1: torch.Tensor, shift: int):
-    """(hit bool, pos int64) for each query: one slab-row gather and a
-    residual compare; pos = bucket*maxlen + first matching slot. The
-    gather materialises a (queries, maxlen) temporary, so the queries run
-    in `probe_chunks_for` slices."""
-    maxlen = slab.shape[1]
-
-    def probe_one(a, b):
-        bidx = widen(a) >> shift
-        eq = slab[bidx] == pack_residual(a, b, shift).unsqueeze(1)
-        slot = torch.argmax(eq.to(torch.uint8), dim=1)     # first match
-        return eq.any(dim=1), bidx * maxlen + slot
-
-    return _in_chunks(probe_one, maxlen, w0, w1)
-
-
-def probe_buckets_packed_ranged_plain(slab: torch.Tensor, w0: torch.Tensor,
-                                      w1: torch.Tensor, shift: int, base: int):
-    """The packed probe against a PARTITION: slab holds the rows of global
-    buckets [base, base + per). Queries outside it miss; pos is GLOBAL
-    (global bucket * maxlen + slot), as over the whole slab."""
-    per, maxlen = slab.shape
-
-    def probe_one(a, b):
+                               w1: torch.Tensor, shift: int, base: int = 0):
+    """(hit bool, pos int64) for each query against a slab holding global
+    bucket rows [base, base + rows) (base 0 and the whole slab: every
+    bucket): one slab-row gather and a residual compare; queries of other
+    buckets miss. pos = global bucket*maxlen + first matching slot
+    (bucket*maxlen on a miss). The gather materialises a (queries, maxlen)
+    temporary, so the queries run in `probe_chunks_for` slices."""
+    rows, maxlen = slab.shape
+    chunks = probe_chunks_for(int(w0.shape[0]), maxlen)
+    hits, poss = [], []
+    for a, b in zip(w0.chunk(chunks), w1.chunk(chunks)):
         gb = widen(a) >> shift
         lb = gb - base
-        mine = (lb >= 0) & (lb < per)
+        mine = (lb >= 0) & (lb < rows)
         res = pack_residual(a, b, shift)
-        eq = (slab[lb.clamp(0, per - 1)] == res.unsqueeze(1)) & mine.unsqueeze(1)
-        slot = torch.argmax(eq.to(torch.uint8), dim=1)
-        return eq.any(dim=1), gb * maxlen + slot
-
-    return _in_chunks(probe_one, maxlen, w0, w1)
+        eq = (slab[lb.clamp(0, rows - 1)] == res.unsqueeze(1)) & mine.unsqueeze(1)
+        slot = torch.argmax(eq.to(torch.uint8), dim=1)     # first match
+        hits.append(eq.any(dim=1))
+        poss.append(gb * maxlen + slot)
+    return torch.cat(hits), torch.cat(poss)
 
 
 def check_probe(slab: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor) -> int:
@@ -208,9 +188,8 @@ def check_probe(slab: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor) -> int:
 
 def probe_packed_cuda(slab: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
                       shift: int, base: int = 0):
-    """Kernel P1 on CUDA tensors: `probe_buckets_packed_ranged_plain`'s
-    (hit, pos) for a slab holding global bucket rows [base, base + rows)
-    (base 0 and the whole slab: `probe_buckets_packed_plain`'s), in one
+    """Kernel P1 on CUDA tensors: `probe_buckets_packed_plain`'s (hit, pos)
+    for a slab holding global bucket rows [base, base + rows), in one
     launch over all queries with no temporary."""
     n = check_probe(slab, w0, w1)
     if not 0 < shift < 32:
@@ -226,53 +205,17 @@ def probe_packed_cuda(slab: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
 
 
 def probe_buckets_packed(slab: torch.Tensor, w0: torch.Tensor,
-                         w1: torch.Tensor, shift: int):
-    """(hit bool, pos int64) for each query against a whole packed slab:
-    pos = bucket*maxlen + first matching slot (bucket*maxlen on a miss).
-    Kernel P1 for CUDA tensors, `probe_buckets_packed_plain` for CPU
-    tensors."""
-    if slab.device.type == "cuda":
-        return probe_packed_cuda(slab, w0, w1, shift)
-    if slab.device.type != "cpu":
-        raise ValueError(f"no packed-probe path for device {slab.device}")
-    return probe_buckets_packed_plain(slab, w0, w1, shift)
-
-
-def probe_buckets_packed_flat(slab_flat: torch.Tensor, maxlen: int,
-                              w0: torch.Tensor, w1: torch.Tensor, shift: int):
-    """The packed probe against a flat (nb*maxlen,) slab. keyhunt_tpu
-    needed a windowed gather here to avoid XLA's 2-D scatter relayout; in
-    torch the flat slab is a (nb, maxlen) view of the same storage."""
-    return probe_buckets_packed(slab_flat.view(-1, maxlen), w0, w1, shift)
-
-
-def probe_buckets_packed_ranged(slab: torch.Tensor, w0: torch.Tensor,
-                                w1: torch.Tensor, shift: int, base: int):
-    """The packed probe against a partition holding global bucket rows
-    [base, base + per): queries outside it miss; pos is GLOBAL. Kernel P1
-    for CUDA tensors, `probe_buckets_packed_ranged_plain` for CPU tensors."""
+                         w1: torch.Tensor, shift: int, base: int = 0):
+    """(hit bool, pos int64) for each query against a packed slab holding
+    global bucket rows [base, base + rows): pos = global bucket*maxlen +
+    first matching slot (bucket*maxlen on a miss); queries of other
+    buckets miss. Kernel P1 for CUDA tensors, `probe_buckets_packed_plain`
+    for CPU tensors."""
     if slab.device.type == "cuda":
         return probe_packed_cuda(slab, w0, w1, shift, base)
     if slab.device.type != "cpu":
         raise ValueError(f"no packed-probe path for device {slab.device}")
-    return probe_buckets_packed_ranged_plain(slab, w0, w1, shift, base)
-
-
-def probe_buckets_ranged(slab0: torch.Tensor, slab1: torch.Tensor,
-                         w0: torch.Tensor, w1: torch.Tensor, shift: int,
-                         base: int):
-    """`probe_buckets` against a partition of two-word slabs holding the
-    rows of global buckets [base, base + per); pos is GLOBAL."""
-    per, maxlen = slab0.shape
-    gb = widen(w0) >> shift
-    lb = gb - base
-    mine = (lb >= 0) & (lb < per)
-    rows = lb.clamp(0, per - 1)
-    eq = ((slab0[rows] == w0.unsqueeze(1)) & (slab1[rows] == w1.unsqueeze(1))
-          & mine.unsqueeze(1))
-    hit = eq.any(dim=1)
-    slot = torch.argmax(eq.to(torch.uint8), dim=1)
-    return hit, gb * maxlen + slot
+    return probe_buckets_packed_plain(slab, w0, w1, shift, base)
 
 
 def first_set(mask: torch.Tensor, k: int) -> torch.Tensor:

@@ -11,13 +11,14 @@ keys, since X(jG) = X(-jG) (`keyhunt.cpp:2871-2874`).
 
 The engine sweeps the range once per pass: one pass over the whole table;
 with ggsb, one per block of baby indices; with `table_partitions` P, one
-per bucket partition (a ranged probe, one partition resident at a time).
-The table is a host-built `BabyTable` or a device-built
-`search.dtable.DeviceTable` (`--dtable`). With a mesh of more than one
-shard (`devices`, `parallel.mesh`), the table is sharded by bucket across
-the shards and each shard walks its own lanes
-(`parallel.bsgs_sharded`); a mesh takes the host table only, and resizes
-no lanes when targets drop out, as in keyhunt_tpu.
+per bucket partition (one partition resident at a time). The table is a
+host-built `search.table.BabyTable` or a device-built
+`search.dtable.DeviceTable` (`--dtable`); every pass is one `Resident`
+set of slabs (`search.table`). With a mesh of more than one shard
+(`devices`, `parallel.mesh`), the table is sharded by bucket across the
+shards and each shard walks its own lanes (`parallel.bsgs_sharded`); a
+mesh takes the host table only, and resizes no lanes when targets drop
+out, as in keyhunt_tpu.
 
 Four behaviours differ from keyhunt_tpu on purpose (its reference
 defects, recorded in ROADMAP.md):
@@ -34,9 +35,6 @@ defects, recorded in ROADMAP.md):
 from __future__ import annotations
 
 import dataclasses
-import hashlib
-import json
-import os
 import random
 import time
 from dataclasses import dataclass
@@ -47,11 +45,14 @@ import torch
 from .. import native, runtime
 from ..device import resolve_device, to_device
 from ..io.results import ResultSink
+from ..ops import jacwalk, match, u256
+from ..parallel.bsgs_sharded import make_sharded_giant_step
+from ..parallel.mesh import as_mesh
 from ..ref import ecc
 from ..stats import SpeedMeter, si
-from ..ops import curve, field, jacwalk, match, u256
-from ..ops.match import probe_chunks_for  # noqa: F401  (sizing helper)
 from ..trace import span
+from .table import (BabyTable, build_baby_table, load_table,  # noqa: F401
+                    save_table, table_path)
 
 #: degenerate-lane report slots per step (lanes whose point x-equals the
 #: advance point -- each IS a solved key, resolved analytically on host).
@@ -59,307 +60,6 @@ from ..trace import span
 #: lie 2B strides apart), so more than 4 targets can fill a row; the engine
 #: then re-runs the block with a slot for every lane.
 DEGEN_SLOTS = 4
-
-
-# ---------------------------------------------------------------------------
-# Baby-step table
-# ---------------------------------------------------------------------------
-
-@dataclass
-class BabyTable:
-    m: int
-    t0: np.ndarray      # sorted fragment word 0 (X limb 7)
-    t1: np.ndarray      # fragment word 1 (X limb 6), lexicographic under t0
-    perm: np.ndarray    # original j-1 (uint32) for each sorted slot
-    depth: int = 4
-    srcdir: str | None = None   # .d directory this table was loaded from
-    verify: bool = True         # honor -6 for derived sidecar files too
-
-    def default_avg(self) -> int:
-        """Bucket mean of the packed slabs: 32 for small tables, 256 from
-        m = 2^25 on (keyhunt_tpu's choice, kept so both packages build
-        the same slabs)."""
-        return 32 if self.m <= (1 << 24) else 256
-
-    def packed(self, avg: int | None = None):
-        """(slab, starts, shift) packed bucket slabs, built lazily and
-        cached; tables loaded from a .d directory also cache them on disk
-        (packed<avg>.{slab,starts}.npy + json with sha256, the same
-        sidecar files keyhunt_tpu reads and writes)."""
-        if avg is None:
-            avg = self.default_avg()
-        cached = getattr(self, "_packed", None)
-        if cached is not None and cached[0] == avg:
-            return cached[1]
-        with span("table.pack"):
-            trip = self._load_packed_sidecar(avg)
-            if trip is None:
-                trip = match.build_buckets_packed(np.asarray(self.t0),
-                                                  np.asarray(self.t1), avg=avg)
-                self._save_packed_sidecar(avg, trip)
-        self._packed = (avg, trip)
-        return trip
-
-    def device_packed(self, device: torch.device):
-        """(slab tensor on `device`, starts, shift), cached per device so
-        engines sharing one table upload the slab once."""
-        cache = self.__dict__.setdefault("_dev_packed", {})
-        if device not in cache:
-            slab, starts, shift = self.packed()
-            with span("table.upload"):
-                cache[device] = (to_device(np.asarray(slab), device), starts, shift)
-        return cache[device]
-
-    def pos_to_j(self, pos: int) -> int | None:
-        """Padded slab position (bucket*maxlen + slot) -> baby index j
-        (1-based), or None for a padded-sentinel false positive."""
-        slab, starts, _ = self.packed()
-        return decode_packed_pos(pos, starts, slab.shape[1], self.perm)
-
-    def _sidecar_paths(self, avg: int):
-        if not self.srcdir or not os.path.isdir(self.srcdir):
-            return None
-        stem = os.path.join(self.srcdir, f"packed{avg}")
-        return (stem + ".slab.npy", stem + ".starts.npy", stem + ".json")
-
-    def _load_packed_sidecar(self, avg: int):
-        paths = self._sidecar_paths(avg)
-        if paths is None or not all(os.path.exists(p) for p in paths):
-            return None
-        slab_p, starts_p, meta_p = paths
-        with open(meta_p) as fh:
-            meta = json.load(fh)
-        if self.verify:
-            for p, key in ((slab_p, "slab"), (starts_p, "starts")):
-                if _file_sha256(p) != meta["sha256"][key]:
-                    raise ValueError(f"checksum mismatch in {p}")
-        return (np.load(slab_p, mmap_mode="r"), np.load(starts_p),
-                int(meta["shift"]))
-
-    def _save_packed_sidecar(self, avg: int, trip):
-        paths = self._sidecar_paths(avg)
-        if paths is None:
-            return
-        slab_p, starts_p, meta_p = paths
-        slab, starts, shift = trip
-        np.save(slab_p, slab)
-        np.save(starts_p, starts)
-        meta = {"shift": shift, "avg": avg,
-                "sha256": {"slab": _file_sha256(slab_p),
-                           "starts": _file_sha256(starts_p)}}
-        with open(meta_p, "w") as fh:
-            json.dump(meta, fh)
-
-
-def decode_packed_pos(pos: int, starts, maxlen: int, perm) -> int | None:
-    """Padded packed-slab position -> baby index j (1-based): entries are
-    bucket-contiguous in sorted order, so sorted index = starts[bucket] +
-    slot; None for padded-sentinel false positives."""
-    bucket, slot = divmod(int(pos), maxlen)
-    if bucket + 1 >= len(starts):
-        return None
-    sidx = int(starts[bucket]) + slot
-    if sidx >= int(starts[bucket + 1]):
-        return None
-    return int(perm[sidx]) + 1
-
-
-def default_depth(m: int) -> int:
-    """Duplicate-chain scan depth recorded with a table (keyhunt_tpu's
-    sorted-array probe; kept for table-file compatibility)."""
-    if m <= 1 << 26:
-        return 4
-    if m <= 1 << 29:
-        return 6
-    return 8
-
-
-def table_from_arrays(m: int, t0, t1, perm, depth: int | None = None) -> BabyTable:
-    """A keyhunt_tpu BabyTable's numpy arrays -> the port's table (the
-    system's counterpart of carrying weights across)."""
-    return BabyTable(m=int(m), t0=np.asarray(t0, np.uint32),
-                     t1=np.asarray(t1, np.uint32),
-                     perm=np.asarray(perm, np.uint32),
-                     depth=depth if depth is not None else default_depth(m))
-
-
-def _builder_step(A: int, W: int, S: int, device: torch.device):
-    """Device fn emitting X fragments of keys [k0+1 .. k0+A*W*S]: A pivots
-    each add the W offsets j*G (one shared batch inversion per step), then
-    advance by A*W*G. Returns run(px, py) -> (px', py', frags (2, S*A*W))."""
-    gtx, gty = (u256.to_torch(a, device) for a in curve.offset_table(W))
-    spx, spy = (u256.to_torch(a, device) for a in curve.point_const(A * W))
-    gx3, gy3 = gtx[:, None, :], gty[:, None, :]
-
-    def run(px, py):
-        frags = []
-        for _ in range(S):
-            dx_main = field.sub(gx3, px[:, :, None])               # (8, A, W)
-            dx_step = field.sub(spx, px)                           # (8, A)
-            inv = field.batch_inv(torch.cat(
-                [dx_main.reshape(8, A * W), dx_step], dim=1))
-            inv_main = inv[:, :A * W].reshape(8, A, W)
-            x3 = curve.add_with_inv(px[:, :, None], py[:, :, None], gx3, gy3,
-                                    inv_main, want_y=False)
-            xn = field.norm(x3)
-            frags.append(torch.stack([xn[7].reshape(-1), xn[6].reshape(-1)]))
-            px2, py2 = curve.add_with_inv(px, py, spx, spy, inv[:, A * W:])
-            px, py = field.norm(px2), field.norm(py2)
-        return px, py, torch.cat(frags, dim=1)
-
-    return run
-
-
-def build_baby_table(m: int, pivots: int = 64, width: int = 2048,
-                     steps: int = 4, depth: int | None = None,
-                     progress: bool = False,
-                     device: torch.device | str = "cuda") -> BabyTable:
-    """Build the j*G fragment table for j = 1..m.
-
-    Keys 1..W+1 come from the host offset table; the rest are generated on
-    `device` (the CUDA device unless the caller names one; raises without
-    a GPU) in batches of A*W*S keys (A is capped so one batch does not
-    overshoot m by more than a pivot's worth). The argsort uses the native
-    radix sort when the host library is built."""
-    with span("table.build"):
-        device = resolve_device(device)
-        W, S = width, steps
-        frags0 = np.zeros((2, m), dtype=np.uint32)
-        host_n = min(W + 1, m)
-        hx, _ = curve.offset_table(max(host_n, 2))
-        frags0[0, :host_n] = hx[7, :host_n]
-        frags0[1, :host_n] = hx[6, :host_n]
-        if m > host_n:
-            A = max(1, min(pivots, -(-(m - host_n) // (W * S))))
-            run = _builder_step(A, W, S, device)
-            k0 = host_n                      # device covers [k0+1, ...]
-            x, y = curve.points_for_keys([k0 + a * W for a in range(A)])
-            px, py = u256.to_torch(x, device), u256.to_torch(y, device)
-            pos = host_n
-            batch = A * W * S
-            while pos < m:
-                px, py, frags = run(px, py)
-                take = min(batch, m - pos)
-                frags0[:, pos:pos + take] = u256.to_numpy(frags[:, :take])
-                pos += take
-                if progress:
-                    print(f"\r[+] baby table {pos}/{m}", end="", flush=True)
-            if progress:
-                print(flush=True)
-        packed = (frags0[0].astype(np.uint64) << 32) | frags0[1].astype(np.uint64)
-        if native.available():
-            perm = native.radix_argsort_u64(packed)
-        else:
-            perm = np.argsort(packed, kind="stable").astype(np.uint32)
-        spacked = packed[perm]
-        return BabyTable(m=m,
-                         t0=(spacked >> 32).astype(np.uint32),
-                         t1=(spacked & 0xFFFFFFFF).astype(np.uint32),
-                         perm=perm,
-                         depth=depth if depth is not None else default_depth(m))
-
-
-# -- persistence: the same .npz and .d formats and file names as
-#    keyhunt_tpu, so a table written by either package loads in the other
-
-#: tables at or above this m default to the directory/memmap format
-DIR_FORMAT_MIN_M = 1 << 26
-
-
-def table_path(m: int, directory: str = ".") -> str:
-    ext = "d" if m >= DIR_FORMAT_MIN_M else "npz"
-    return os.path.join(directory, f"keyhunt_tpu_bsgs_{m:x}.{ext}")
-
-
-def _is_dir_format(path: str) -> bool:
-    return path.endswith(".d") or path.endswith("/") or os.path.isdir(path)
-
-
-def _norm_table_path(path: str) -> str:
-    if _is_dir_format(path):
-        return path
-    # np.savez appends ".npz" to bare names; keep save/load agreeing.
-    return path if path.endswith(".npz") else path + ".npz"
-
-
-def _file_sha256(path: str) -> str:
-    with span("table.checksum"):
-        h = hashlib.sha256()
-        with open(path, "rb") as fh:
-            for chunk in iter(lambda: fh.read(1 << 24), b""):
-                h.update(chunk)
-        return h.hexdigest()
-
-
-def _arrays_sha256(tbl: BabyTable) -> bytes:
-    """The .npz format's checksum: sha256 of t0, t1 and perm's bytes."""
-    with span("table.checksum"):
-        blob = tbl.t0.tobytes() + tbl.t1.tobytes() + tbl.perm.tobytes()
-        return hashlib.sha256(blob).digest()
-
-
-def save_table(tbl: BabyTable, directory: str = ".", path: str | None = None) -> str:
-    with span("table.save"):
-        path = _norm_table_path(path or table_path(tbl.m, directory))
-        if _is_dir_format(path):
-            return _save_table_dir(tbl, path)
-        np.savez(path, m=tbl.m, t0=tbl.t0, t1=tbl.t1, perm=tbl.perm,
-                 sha256=np.frombuffer(_arrays_sha256(tbl), dtype=np.uint8))
-        return path
-
-
-def _save_table_dir(tbl: BabyTable, dirpath: str) -> str:
-    os.makedirs(dirpath, exist_ok=True)
-    sums = {}
-    for name in ("t0", "t1", "perm"):
-        fp = os.path.join(dirpath, name + ".npy")
-        np.save(fp, getattr(tbl, name))
-        sums[name] = _file_sha256(fp)
-    meta = {"m": tbl.m, "depth": tbl.depth, "sha256": sums}
-    with open(os.path.join(dirpath, "meta.json"), "w") as fh:
-        json.dump(meta, fh)
-    tbl.srcdir = dirpath        # future packed() builds cache on disk here
-    return dirpath
-
-
-def load_table(m: int, directory: str = ".", verify: bool = True,
-               path: str | None = None, mmap: bool = True) -> BabyTable | None:
-    with span("table.load"):
-        path = _norm_table_path(path or table_path(m, directory))
-        if _is_dir_format(path):
-            return _load_table_dir(m, path, verify=verify, mmap=mmap)
-        if not os.path.exists(path):
-            return None
-        data = np.load(path)
-        if int(data["m"]) != m:
-            raise ValueError(f"{path} holds a table for m={int(data['m']):#x}, "
-                             f"wanted m={m:#x}")
-        tbl = BabyTable(m=m, t0=data["t0"], t1=data["t1"], perm=data["perm"],
-                        depth=default_depth(m))
-        if verify and _arrays_sha256(tbl) != bytes(data["sha256"].tobytes()):
-            raise ValueError(f"checksum mismatch in {path}")
-        return tbl
-
-
-def _load_table_dir(m: int, dirpath: str, verify: bool = True,
-                    mmap: bool = True) -> BabyTable | None:
-    meta_path = os.path.join(dirpath, "meta.json")
-    if not os.path.exists(meta_path):
-        return None
-    with open(meta_path) as fh:
-        meta = json.load(fh)
-    if int(meta["m"]) != m:
-        raise ValueError(f"{dirpath} holds a table for m={int(meta['m']):#x}, "
-                         f"wanted m={m:#x}")
-    arrs = {}
-    for name in ("t0", "t1", "perm"):
-        fp = os.path.join(dirpath, name + ".npy")
-        if verify and _file_sha256(fp) != meta["sha256"][name]:
-            raise ValueError(f"checksum mismatch in {fp}")
-        arrs[name] = np.load(fp, mmap_mode="r" if mmap else None)
-    return BabyTable(m=m, t0=arrs["t0"], t1=arrs["t1"], perm=arrs["perm"],
-                     depth=int(meta.get("depth", default_depth(m))),
-                     srcdir=dirpath, verify=verify)
 
 
 # ---------------------------------------------------------------------------
@@ -399,59 +99,32 @@ class BsgsConfig:
         return max(count, 1), max(size, 1)
 
 
-def bucket_partitions(tbl: BabyTable, parts: int):
-    """Split the packed slab into `parts` value-contiguous partitions:
-    partition p holds global bucket rows [p*per, (p+1)*per), the last
-    padded with sentinel rows. Returns ([(slab_p, base_row)], starts,
-    shift); `starts` is the global bucket prefix the partitions share
-    (their probes report global padded positions)."""
-    slab, starts, shift = tbl.packed()
-    nb, maxlen = slab.shape
-    if nb % parts:
-        pad = parts - nb % parts
-        fill = np.full((pad, maxlen), 0xFFFFFFFF, np.uint32)
-        slab = np.concatenate([np.asarray(slab), fill])
-        starts = np.concatenate(
-            [starts, np.full(pad, starts[-1], starts.dtype)])
-        nb += pad
-    per = nb // parts
-    return [(slab[p * per:(p + 1) * per], p * per) for p in range(parts)], \
-        starts, shift
-
-
-def make_giant_step_fn(cfg: BsgsConfig, shift: int = 4,
-                       degen_slots: int = DEGEN_SLOTS):
-    """The giant step over T*B Jacobian lanes:
-    run(X, Y, Z, slab, base=None) -> (X', Y', Z', payload).
+def make_giant_step_fn(cfg: BsgsConfig, resident, degen_slots: int = DEGEN_SLOTS):
+    """The giant step over T*B Jacobian lanes on the pass's slab
+    `resident` (a `search.table.Resident` of one device): run(X, Y, Z) ->
+    (X', Y', Z', payload).
 
     K4 walks S steps and emits (X, Z) per step; `to_affine_x` (K3, K2, K1,
-    norm) gives canonical affine X for all S*L queries; the packed probe
-    (kernel P1 on CUDA) runs over all queries at once, against the whole
-    slab, or with `base`
-    against a partition holding global bucket rows [base, base + rows)
-    (`match.probe_buckets_packed_ranged`, keyhunt_tpu's `run_ranged`;
-    positions stay global); hits and degenerate lanes are extracted
-    on the device with no host sync. payload is one int64 vector,
-    [lanes(K) | jsel(K) | count(1) | flags(S*D)]: flat query indices of
-    the first K hits, their padded slab positions, the hit count, and per
-    step the first D = `degen_slots` flagged lanes (-1 pad).
-    Each stage runs inside a `trace.span` named "bsgs.<stage>"."""
-    B, S, K = cfg.lanes, cfg.steps, cfg.max_hits
-    negadv = ecc.ec_neg(ecc.ec_mul(B * cfg.stride))
+    norm) gives canonical affine X for all S*L queries
+    (`jacwalk.giant_walk_fn`); the packed probe (kernel P1 on CUDA) runs
+    over all queries at once against the slab, which holds global bucket
+    rows [base, base + rows) (the whole table at base 0, a partition
+    elsewhere: keyhunt_tpu's `run_ranged`; positions stay global); hits
+    and degenerate lanes are extracted on the device with no host sync.
+    payload is one int64 vector, [lanes(K) | jsel(K) | count(1) |
+    flags(S*D)]: flat query indices of the first K hits, their padded slab
+    positions, the hit count, and per step the first D = `degen_slots`
+    flagged lanes (-1 pad). Each stage runs inside a `trace.span` named
+    "bsgs.<stage>"."""
+    K = cfg.max_hits
+    walk = jacwalk.giant_walk_fn(cfg.lanes * cfg.stride, cfg.steps)
+    (slab,), (base,), shift = resident.slabs, resident.bases, resident.shift
 
-    def run(X, Y, Z, slab, base=None):
-        with span("bsgs.giant_scan"):
-            Xo, Yo, Zo, xs, zs, dg = jacwalk.giant_scan(
-                X, Y, Z, negadv[0], negadv[1], S)
-        with span("bsgs.to_affine"):
-            xa = jacwalk.to_affine_x(xs, zs)         # (8, S*L) canonical
+    def run(X, Y, Z):
+        Xo, Yo, Zo, xa, dg = walk(X, Y, Z)
         w0, w1 = xa[7], xa[6]                         # step-major queries
         with span("bsgs.probe"):
-            if base is None:
-                hit, pos = match.probe_buckets_packed(slab, w0, w1, shift)
-            else:
-                hit, pos = match.probe_buckets_packed_ranged(slab, w0, w1,
-                                                             shift, base)
+            hit, pos = match.probe_buckets_packed(slab, w0, w1, shift, base)
         with span("bsgs.topk"):
             flags = match.first_set(dg, degen_slots)
             lanes, jsel, count = match.topk_with_payload(hit, pos, K)
@@ -544,13 +217,9 @@ class BsgsEngine:
         self.cfg = cfg
         self.tbl = tbl
         self.device = resolve_device(device)     # raises without a GPU
-        from ..parallel.mesh import as_mesh      # (parallel imports search)
         self.mesh = as_mesh(devices, self.device)
         self.n_devices = self.mesh.size if self.mesh else 1
         if self.mesh:
-            if tbl.perm is None:
-                raise ValueError("the device-built table (--dtable) supports "
-                                 "a single resident device")
             self.device = self.mesh.home
         self.targets = list(targets)          # [(x, y) points]
         self.start, self.end = start, end
@@ -574,40 +243,34 @@ class BsgsEngine:
         self._set_pass(self._passes[0])
 
     def _build_passes(self):
-        """The search passes, tagged ("tbl", table) or ("part", slab, base,
-        starts, shift). One pass over the whole table for every scheduler
-        except:
+        """The search passes, each (table, part, parts): piece `part` of
+        `parts` of the table's bucket slab is resident during the pass
+        (`_set_pass`). One pass over the whole table, (tbl, 0, 1), for every
+        scheduler except:
         - ggsb with more than one block, which splits the BABY INDICES:
           pass b probes a table of j in (b*size, (b+1)*size] only (the
           reference's GGSB blocks, keyhunt.cpp:1477-1499), each padded
-          with sentinels to one shape;
+          with sentinels to one shape, (block, 0, 1);
         - table_partitions P > 1, which splits the BUCKET SLAB into P
-          value-contiguous partitions (`bucket_partitions`): each pass
-          sweeps the range against one resident partition.
+          value-contiguous partitions, (tbl, p, P): each pass sweeps the
+          range against one resident partition (on a mesh, piece p of
+          every shard's bucket range).
         Both need a host table (a DeviceTable has no host index)."""
         tbl, cfg = self.tbl, self.cfg
         if cfg.table_partitions > 1:
             if cfg.scheduler == "ggsb":
                 raise ValueError("table_partitions and the ggsb scheduler "
                                  "are both pass machineries; pick one")
-            if tbl.perm is None:
-                raise ValueError("table partitions need the host baby table "
-                                 "(--dtable has no host index)")
-            if self.mesh:
-                # composed with the mesh: pass p keeps piece p of every
-                # shard's bucket range resident (parallel.bsgs_sharded)
-                return [("spart", p, cfg.table_partitions)
-                        for p in range(cfg.table_partitions)]
-            parts, starts, shift = bucket_partitions(tbl, cfg.table_partitions)
-            return [("part", slab, base, starts, shift) for slab, base in parts]
+            return [(tbl, p, cfg.table_partitions)
+                    for p in range(cfg.table_partitions)]
         if cfg.scheduler != "ggsb":
-            return [("tbl", tbl)]
+            return [(tbl, 0, 1)]
         if tbl.perm is None:
             raise ValueError("ggsb needs the host baby table "
                              "(--dtable has no host index)")
         count, size = cfg.ggsb_blocks()
         if count <= 1:
-            return [("tbl", tbl)]
+            return [(tbl, 0, 1)]
         pad_n = 1 << (size - 1).bit_length()
         passes = []
         for b in range(count):
@@ -619,68 +282,36 @@ class BsgsEngine:
             if fill > 0:
                 cols = [np.concatenate([c, np.full(fill, v, np.uint32)])
                         for c, v in zip(cols, (0xFFFFFFFF, 0xFFFFFFFF, 0))]
-            passes.append(("tbl", BabyTable(m=tbl.m, t0=cols[0], t1=cols[1],
-                                            perm=cols[2], depth=tbl.depth)))
+            block = BabyTable(m=tbl.m, t0=cols[0], t1=cols[1], perm=cols[2],
+                              depth=tbl.depth)
+            passes.append((block, 0, 1))
         return passes
 
     def _set_pass(self, entry):
-        """Make pass `entry` current. The previous pass's slab is released
-        before this one is uploaded, so one partition (or ggsb block) is
-        resident at a time; the whole table's slab stays cached on the
-        table, so engines sharing it (the daemon's) upload it once. Binds
-        the pass's host decode `_pos_to_j` (padded slab position -> baby
-        index, None for a sentinel) and builds the step fn."""
+        """Make pass `entry` = (table, part, parts) current: its `Resident`
+        slabs on this engine's device, or one piece a shard on the mesh.
+        The previous pass's slabs, and the step fns holding them, are
+        released before this pass's are uploaded, so one partition (or
+        ggsb block) is resident at a time; the whole table's stay cached
+        on the table, so engines sharing it (the daemon's) upload them
+        once. Binds the pass's host decode `_pos_to_j` (padded slab
+        position -> baby index, None for a sentinel) and builds the step
+        fn."""
         self._pass = entry
-        self._slab = None
-        if self.mesh:
-            self._set_sharded_pass(entry)
-            return
-        if entry[0] == "part":
-            _, slab, base, starts, shift = entry
-            self._slab = to_device(np.asarray(slab), self.device)
-            self._base = base
-            maxlen, perm = slab.shape[1], self.tbl.perm
-            self._pos_to_j = lambda pos: decode_packed_pos(pos, starts,
-                                                           maxlen, perm)
-        else:
-            sub = entry[1]
-            self._base = None
-            if sub is self.tbl:
-                self._slab, _, shift = sub.device_packed(self.device)
-            else:
-                slab, _, shift = sub.packed()
-                self._slab = to_device(np.asarray(slab), self.device)
-            self._pos_to_j = sub.pos_to_j
-        self._shift = shift
-        self._set_step()
-
-    def _set_sharded_pass(self, entry):
-        """A pass on the mesh: ("spart", p, P) keeps piece p of every
-        shard's bucket range resident; ("tbl", table) shards the table.
-        The shards are uploaded once per pass and shared by the re-run
-        step fns; the whole table's stay cached on the table, as its
-        one-device slab does."""
-        from ..parallel.bsgs_sharded import resident_shards
-        # release the previous pass's shards, and the step fns holding
-        # them, before this pass's are uploaded
         self._resident = self.step_fn = None
         self._wide_fns = {}
-        if entry[0] == "spart":
-            _, part, parts = entry
-            tbl = self.tbl
-        else:
-            part, parts, tbl = 0, 1, entry[1]
-        self._resident = resident_shards(tbl, self.mesh, part, parts,
-                                         cache=tbl is self.tbl)
+        tbl, part, parts = entry
+        mesh = self.mesh
+        layout = (mesh.devices, mesh.first, mesh.size) if mesh else ([self.device], 0, 1)
+        self._resident = tbl.resident(*layout, part, parts, cache=tbl is self.tbl)
         self._pos_to_j = self._resident.pos_to_j
         self._set_step()
 
     def _make_step(self, cfg, degen_slots: int = DEGEN_SLOTS):
         if self.mesh:
-            from ..parallel.bsgs_sharded import make_sharded_giant_step
             return make_sharded_giant_step(cfg, self._resident, self.mesh,
                                            len(self.targets), degen_slots)
-        return make_giant_step_fn(cfg, self._shift, degen_slots=degen_slots)
+        return make_giant_step_fn(cfg, self._resident, degen_slots)
 
     def _set_step(self):
         """The step fn for the current lanes and targets."""
@@ -689,11 +320,8 @@ class BsgsEngine:
 
     def _dispatch(self, state):
         with span("bsgs.dispatch"):
-            if self.mesh:
-                *state, payload = self.step_fn(*state)
-                return tuple(state), payload
-            Xo, Yo, Zo, payload = self.step_fn(*state, self._slab, self._base)
-            return (Xo, Yo, Zo), payload
+            *state, payload = self.step_fn(*state)
+            return tuple(state), payload
 
     def _fetch_async(self, payload: torch.Tensor):
         """Start the payload's device->host copy without waiting (pinned
@@ -736,11 +364,7 @@ class BsgsEngine:
             if (K, D) not in self._wide_fns:
                 self._wide_fns[K, D] = self._make_step(
                     dataclasses.replace(self.cfg, max_hits=K), degen_slots=D)
-            if self.mesh:
-                payload = self._wide_fns[K, D](*self._seed(c0))[3]
-            else:
-                payload = self._wide_fns[K, D](*self._seed(c0), self._slab,
-                                               self._base)[3]
+            payload = self._wide_fns[K, D](*self._seed(c0))[3]
             self._decode(c0, payload.cpu().numpy(), K, D)
 
     def _lane_offsets(self):
@@ -1019,7 +643,7 @@ class BsgsEngine:
 
 
 # ---------------------------------------------------------------------------
-# CLI entry (keyhunt -m bsgs surface)
+# Sizing of the CLI's and the daemon's searches
 # ---------------------------------------------------------------------------
 
 def auto_lanes(m: int, steps: int, start: int, end: int,
@@ -1051,92 +675,3 @@ def derive_m(n_value: int | None, k: int) -> int:
         print_nk_table()
         raise SystemExit(1)
     return k * (1 << ((n.bit_length() - 1) // 2))
-
-
-def run_bsgs_cli(args, device: torch.device) -> int:
-    from .. import trace
-    from ..io.targets import load_pubkeys_file
-    from ..cli import parse_int, resolve_devices, resolve_range
-
-    # flag incompatibilities, exactly as the reference rejects them
-    # (keyhunt.cpp:1185-1194)
-    if getattr(args, "endomorphism", False):
-        raise SystemExit("[E] Endomorphism doesn't work with BSGS")
-    if parse_int(getattr(args, "stride", "1") or "1") != 1:
-        raise SystemExit("[E] Stride doesn't work with BSGS")
-    if not args.file:
-        raise SystemExit("[E] -f FILE with public keys required")
-    if not os.path.exists(args.file):
-        raise SystemExit(f"[E] can't open file {args.file}")
-    pts = load_pubkeys_file(args.file)
-    start, end = resolve_range(args)
-    devices = resolve_devices(args, device)
-    n_value = parse_int(args.nvalue) if args.nvalue else None
-    m = derive_m(n_value, args.kfactor)
-    print(f"[+] BSGS: {len(pts)} pubkeys, m={m:#x}, range {start:#x}:{end:#x}, "
-          f"device {device}, devices {devices}", flush=True)
-    path = getattr(args, "ptable", None) or table_path(m, args.tmpdir)
-    tbl = None
-    if args.dtable:
-        # built in device memory: no disk, no upload (search.dtable)
-        if args.save or args.load_ptable:
-            raise SystemExit("[E] --dtable builds in device memory; "
-                             "-S/--load-ptable do not apply")
-        if args.table_partitions > 1 or devices > 1 or runtime.current():
-            raise SystemExit("[E] --dtable supports a single resident "
-                             "device for now")
-        from .dtable import build_device_table
-        tbl = build_device_table(m, progress=not args.quiet, device=device)
-    elif args.save or args.load_ptable:
-        tbl = load_table(m, path=path, verify=not args.skip_checksum)
-        if tbl is not None:
-            print(f"[+] loaded baby table {path}", flush=True)
-        elif args.load_ptable:
-            raise SystemExit(f"[E] --load-ptable: no table {path}")
-    if tbl is None:
-        tbl = build_baby_table(m, progress=not args.quiet, device=device)
-        if args.save:
-            print(f"[+] saved baby table {save_table(tbl, path=path)}", flush=True)
-    scheduler = args.bsgs_mode
-    if args.bsgs_block_count or args.bsgs_block_size:
-        scheduler = "ggsb"                 # --bsgs-block-* implies -B ggsb
-    steps = max(int(args.steps or 16), 1)
-    lanes = int(args.lanes or 0)
-    if lanes <= 0:
-        while True:
-            try:
-                lanes = auto_lanes(m, steps, start, end, n_targets=len(pts))
-                break
-            except ValueError as e:
-                # the 256-lane floor x target count exceeds the 2^21
-                # queries/call ceiling: shed steps first, then give up
-                if steps > 1:
-                    steps = max(steps // 2, 1)
-                    continue
-                raise SystemExit(f"[E] {e}")
-    cfg = BsgsConfig(m=m, lanes=lanes, steps=steps, scheduler=scheduler,
-                     block_count=args.bsgs_block_count,
-                     block_size=args.bsgs_block_size,
-                     table_partitions=args.table_partitions)
-    eng = BsgsEngine(cfg, tbl, pts, start, end, quiet=args.quiet,
-                     stats_every=args.stats, matrix=args.matrix,
-                     device=device, devices=devices)
-    spans = trace.totals()
-    found = eng.run(max_seconds=args.max_seconds)
-    if not args.quiet:
-        secs = max(eng.run_seconds, 1e-9)
-        print(f"[+] BSGS: {eng.dispatches} dispatches, {eng.giant_points} "
-              f"giant points in {eng.run_seconds:.3f} s "
-              f"({1e3 * secs / max(eng.dispatches, 1):.3f} ms per dispatch, "
-              f"{eng.giant_points / secs:.4e} giant points/s, drains "
-              f"included); {eng.probe_hits} probe hits, {eng.false_hits} "
-              f"false positives, {eng.ec_checks} EC checks "
-              f"({eng.oracle_checks} on the Python oracle)", flush=True)
-        if args.dtable:
-            print(f"[+] device table: {tbl.find_j_calls} find_j re-walks in "
-                  f"{tbl.find_j_seconds:.3f} s", flush=True)
-        print("[+] BSGS " + trace.stage_line(
-            "bsgs", ("seed", "dispatch", "fetch", "decode", "rerun", "dropout"),
-            spans), flush=True)
-    print(f"[+] BSGS done: {len(found)}/{len(pts)} keys found", flush=True)
-    return 0

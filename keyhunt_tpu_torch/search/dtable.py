@@ -2,9 +2,9 @@
 arrays, no sort over m and no disk.
 
 Counterpart of keyhunt_tpu/search/dtable.py. The host table
-(`bsgs.build_baby_table`) sorts m fragments on the host and uploads the
+(`table.build_baby_table`) sorts m fragments on the host and uploads the
 packed slab; this one walks j*G for j = 1..m on the device with the
-builder's batched walk (`bsgs._builder_step`: K3, K1, K2) and places each
+builder's batched walk (`table.builder_step`: K3, K1, K2) and places each
 batch straight into its bucket rows.
 
 Layout, 5 bytes per slot:
@@ -52,11 +52,11 @@ import torch
 from ..device import resolve_device
 from ..ops import curve, match, u256
 from ..ops.u256 import widen
-from . import bsgs
+from .table import Resident, builder_step
 
 #: flat int32 index ceiling of keyhunt_tpu's scatters (`n_halves`)
 _SPLIT_SLOTS = 1 << 31
-#: probe queries per dispatch at most (`bsgs.auto_lanes`' ceiling)
+#: probe queries per dispatch at most (`search.bsgs.auto_lanes`' ceiling)
 MAX_QUERIES = 1 << 21
 
 
@@ -93,8 +93,8 @@ def jshift_for(m: int) -> int:
 def probe_chunk_bytes(maxlen: int, queries: int = MAX_QUERIES) -> int:
     """Device bytes of one probe chunk at `queries` per dispatch: the row
     gather (4 B per element) and its two compare masks (1 B each), over
-    the chunk's share of the queries (`bsgs.probe_chunks_for`)."""
-    chunks = bsgs.probe_chunks_for(queries, maxlen)
+    the chunk's share of the queries (`match.probe_chunks_for`)."""
+    chunks = match.probe_chunks_for(queries, maxlen)
     return queries // chunks * maxlen * 6
 
 
@@ -117,8 +117,8 @@ def check_device_memory(m: int, nb: int, maxlen: int, device: torch.device):
 
 
 class DeviceTable:
-    """The BabyTable surface BsgsEngine needs: .m, .depth,
-    .device_packed(), .pos_to_j(); t0/t1/perm are None (no host arrays).
+    """The BabyTable surface BsgsEngine needs: .m and .resident(), whose
+    decode is `pos_to_j`; t0/t1/perm are None (no host arrays).
     Counts its re-walks: `find_j_calls`, `find_j_seconds`."""
 
     t0 = t1 = perm = None
@@ -165,12 +165,22 @@ class DeviceTable:
         self._hints[flat] = (((order + j0) >> self.jshift) & 0xFF).to(torch.uint8)
         self.fill.index_add_(0, bs, torch.ones_like(bs))
 
-    def device_packed(self, device: torch.device):
-        """(slab, None, shift): the slab lives on the device it was built on."""
-        if torch.device(device) != self.device:
+    def resident(self, devices, first: int = 0, size: int = 1, part: int = 0,
+                 parts: int = 1, cache: bool = True) -> Resident:
+        """`BabyTable.resident` for the whole table on the one device it
+        was built on: its slab at row 0, nothing uploaded. A device table
+        is neither partitioned nor sharded (no host index to cut)."""
+        if parts > 1:
+            raise ValueError("table partitions need the host baby table "
+                             "(--dtable has no host index)")
+        if size > 1:
+            raise ValueError("the device-built table (--dtable) supports "
+                             "a single resident device")
+        if torch.device(devices[0]) != self.device:
             raise ValueError(f"device table built on {self.device}, "
-                             f"wanted on {device}")
-        return self.res_slab, None, self.shift
+                             f"wanted on {devices[0]}")
+        return Resident([self.res_slab], [0], self.shift, self.maxlen,
+                        self.pos_to_j)
 
     def pos_to_j(self, pos: int) -> int | None:
         """Padded position -> exact baby j (1-based), or None for a padded
@@ -195,7 +205,7 @@ class DeviceTable:
 
 @functools.lru_cache(maxsize=None)
 def _walk(A: int, W: int, S: int, device: torch.device):
-    return bsgs._builder_step(A, W, S, device)
+    return builder_step(A, W, S, device)
 
 
 def find_j(bucket: int, resid: int, shift: int, j_lo: int, j_hi: int,

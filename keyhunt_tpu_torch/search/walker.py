@@ -37,8 +37,8 @@ from ..ops import curve, field, match, u256
 from ..ops import hash160 as h160
 from ..ops.sha256 import bswap32
 from ..ops.u256 import widen
+from ..ops.match import probe_chunks_for
 from ..trace import span
-from .bsgs import probe_chunks_for
 
 #: variants (candidate forms checked per computed point) per mode
 MODE_VARIANTS = {

@@ -36,8 +36,8 @@ from . import runtime
 from .device import resolve_device
 from .io.results import ResultSink
 from .ref import ecc
-from .search.bsgs import (BabyTable, BsgsConfig, BsgsEngine, auto_lanes,
-                          check_range)
+from .search.bsgs import BsgsConfig, BsgsEngine, auto_lanes, check_range
+from .search.table import BabyTable
 from .trace import span
 
 
@@ -256,7 +256,8 @@ def main(argv=None) -> int:
     bsgsd.cpp:775), plus --device."""
     import argparse
     from .cli import resolve_devices, start_runtime
-    from .search.bsgs import build_baby_table, derive_m, load_table, save_table
+    from .search.bsgs import derive_m
+    from .search.table import open_table, table_path
 
     ap = argparse.ArgumentParser(prog="keyhunt-tpu-torch-bsgsd")
     ap.add_argument("-i", "--ip", default="127.0.0.1")
@@ -295,14 +296,9 @@ def main(argv=None) -> int:
     start_runtime(args)
     n_value = int(args.nvalue, 16) if args.nvalue else None
     m = derive_m(n_value, args.kfactor)
-    tbl = None
-    if args.save:
-        tbl = load_table(m, directory=args.tmpdir,
-                         verify=not args.skip_checksum)
-    if tbl is None:
-        tbl = build_baby_table(m, progress=True, device=device)
-        if args.save:
-            save_table(tbl, directory=args.tmpdir)
+    tbl, _ = open_table(m, table_path(m, args.tmpdir), load=args.save,
+                        save=args.save, verify=not args.skip_checksum,
+                        device=device, progress=True)
     srv = BsgsdServer(tbl, args.ip, args.port, lanes=args.lanes,
                       steps=args.steps, quiet=False,
                       max_lanes=args.max_lanes, device=device,

@@ -97,9 +97,8 @@ def _sync(device: torch.device) -> None:
 
 def bench_bsgs(args, emit=True):
     from ..ref import ecc
-    from ..search.bsgs import (BsgsConfig, build_baby_table, load_table,
-                               make_giant_step_fn, save_table, seed_lanes,
-                               table_path)
+    from ..search.bsgs import BsgsConfig, make_giant_step_fn, seed_lanes
+    from ..search.table import open_table, table_path
     device = resolve_device(args.device)
     m = args.m
     os.makedirs(args.tmpdir, exist_ok=True)
@@ -114,17 +113,12 @@ def bench_bsgs(args, emit=True):
                 break
     cfg = BsgsConfig(m=m, lanes=args.lanes, steps=args.steps)
     t_b = time.time()
-    path = table_path(cfg.m, args.tmpdir)
-    tbl = load_table(cfg.m, path=path, verify=False)
-    if tbl is None:
-        tbl = build_baby_table(cfg.m, pivots=64, width=2048, steps=4,
-                               device=device)
-        save_table(tbl, path=path)
+    tbl, _ = open_table(cfg.m, table_path(cfg.m, args.tmpdir), load=True,
+                        save=True, verify=False, device=device)
     if args.verbose:
         print(f"[bench] baby table m=2^{cfg.m.bit_length() - 1} ready in "
               f"{time.time() - t_b:.1f}s", file=sys.stderr, flush=True)
-    slab, _starts, shift = tbl.device_packed(device)
-    step = make_giant_step_fn(cfg, shift)
+    step = make_giant_step_fn(cfg, tbl.resident([device]))
     # one unreachable target point far outside the walked window
     px, py = seed_lanes(cfg, [ecc.pubkey((1 << 200) + 12345)],
                         c0=cfg.stride * cfg.lanes + 1)
@@ -132,13 +126,12 @@ def bench_bsgs(args, emit=True):
     pz[0] = 1
     state = tuple(to_device(a, device) for a in (px, py, pz))
     t_c = time.time()
-    state = step(*state, slab)[:3]
+    state = step(*state)[:3]
     _sync(device)
     if args.verbose:
         print(f"[bench] build+first call {time.time() - t_c:.1f}s",
               file=sys.stderr, flush=True)
-    calls, dt = _steady_rate(lambda X, Y, Z: step(X, Y, Z, slab), state,
-                             args.seconds, device)
+    calls, dt = _steady_rate(step, state, args.seconds, device)
     rate = calls * cfg.keys_per_call(1) / dt
     points = calls * cfg.lanes * cfg.steps / dt
     result = {

@@ -112,20 +112,19 @@ def main(argv=None) -> int:
 
     # the step alone: 4 targets x 32768 lanes x 16 steps, no decode
     cfg = bsgs.BsgsConfig(m=m, lanes=LANES_TOTAL // 4, steps=STEPS)
-    slab, _, shift = tbl.device_packed(device)
-    step = bsgs.make_giant_step_fn(cfg, shift)
+    step = bsgs.make_giant_step_fn(cfg, tbl.resident([device]))
     px, py = bsgs.seed_lanes(cfg, [ecc.pubkey(k) for k in decoys], start)
     X, Y = u256.to_torch(px, device), u256.to_torch(py, device)
     Z = torch.zeros_like(X)
     Z[0] = 1
     for _ in range(2):
-        X, Y, Z, _ = step(X, Y, Z, slab)
-    n, s = steady(lambda: step(X, Y, Z, slab), args.steady)
+        X, Y, Z, _ = step(X, Y, Z)
+    n, s = steady(lambda: step(X, Y, Z), args.steady)
     points = n * LANES_TOTAL * STEPS / s
     _emit(out, {"stage": "steady", "dispatches": n, "seconds": s,
                 "ms_per_dispatch": 1e3 * s / n,
                 "giant_points_per_s": points, "keys_per_s": points * 2 * m,
-                "trace": profile_dispatches(lambda: step(X, Y, Z, slab), 3, "bsgs")})
+                "trace": profile_dispatches(lambda: step(X, Y, Z), 3, "bsgs")})
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     print(smi, flush=True)

@@ -138,7 +138,7 @@ def check_rate(n_cards: int, m: int, lanes: int, seconds: float) -> dict:
     import torch
     from .. import _build
     from ..ops import u256
-    from ..parallel.bsgs_sharded import make_sharded_giant_step, resident_shards
+    from ..parallel.bsgs_sharded import make_sharded_giant_step
     from ..parallel.mesh import make_mesh
     from ..ref import ecc
     from ..search import bsgs
@@ -165,15 +165,15 @@ def check_rate(n_cards: int, m: int, lanes: int, seconds: float) -> dict:
         for z in Zs:
             z[0] = 1
         if D == 1:
-            slab, _, shift = tbl.device_packed(dev0)
-            one = bsgs.make_giant_step_fn(cfg, shift)
+            one = bsgs.make_giant_step_fn(cfg, tbl.resident([dev0]))
 
             def step():
-                return one(Xs[0], Ys[0], Zs[0], slab)
+                return one(Xs[0], Ys[0], Zs[0])
         else:
             mesh = make_mesh(devices=[torch.device("cuda", d) for d in range(D)])
-            sharded = make_sharded_giant_step(cfg, resident_shards(tbl, mesh),
-                                              mesh, T)
+            sharded = make_sharded_giant_step(
+                cfg, tbl.resident(mesh.devices, mesh.first, mesh.size), mesh, T,
+                bsgs.DEGEN_SLOTS)
 
             def step():
                 return sharded(Xs, Ys, Zs)

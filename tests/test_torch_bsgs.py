@@ -24,10 +24,12 @@ from keyhunt_tpu.search import bsgs as jb
 from keyhunt_tpu_torch import cli, native
 from keyhunt_tpu_torch.io.results import ResultSink
 from keyhunt_tpu_torch.ref import ecc
-from keyhunt_tpu_torch.ops import field, u256
+from keyhunt_tpu_torch.ops import field, match, u256
 from keyhunt_tpu_torch.search import bsgs
+from keyhunt_tpu_torch.search.table import bucket_piece, table_from_arrays
 
 M = 256              # tiny baby table: stride 512 keys
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +61,7 @@ def test_giant_step_matches_jax(table):
     hit (lane 1, step 1, j = 183); key 3329 lies on a step-1 stride centre,
     so its lane x-equals the advance point at step 0 (a degenerate flag)."""
     jt = jb.BabyTable(m=table.m, t0=table.t0, t1=table.t1, perm=table.perm)
-    pt = bsgs.table_from_arrays(jt.m, jt.t0, jt.t1, jt.perm, jt.depth)
+    pt = table_from_arrays(jt.m, jt.t0, jt.t1, jt.perm, jt.depth)
     cfg_j = jb.BsgsConfig(m=M, lanes=4, steps=2)
     cfg = bsgs.BsgsConfig(m=M, lanes=4, steps=2)
     targets = [ecc.pubkey(3000), ecc.pubkey(3329)]
@@ -75,10 +77,10 @@ def test_giant_step_matches_jax(table):
     jfn = jb.make_giant_step_fn(cfg_j, len(targets), shift)
     jX, jY, jZ, jpay = jfn(jnp.asarray(px), jnp.asarray(py), jnp.asarray(z),
                           jnp.asarray(slab))
-    pslab, _, pshift = pt.device_packed(torch.device("cpu"))
-    assert pshift == shift
-    fn = bsgs.make_giant_step_fn(cfg, pshift)
-    X, Y, Z, pay = fn(*(u256.to_torch(a) for a in (px, py, z)), pslab)
+    res = pt.resident([CPU])
+    assert res.shift == shift and res.bases == [0]
+    fn = bsgs.make_giant_step_fn(cfg, res)
+    X, Y, Z, pay = fn(*(u256.to_torch(a) for a in (px, py, z)))
 
     jpay = np.asarray(jpay)
     K = cfg.max_hits
@@ -309,33 +311,38 @@ def _jax_engine(tbl, cfg_kw, keys, tmp_path):
                                     {"scheduler": "ggsb", "block_count": 4},
                                     {"scheduler": "ggsb", "block_size": 100}])
 def test_passes_match_jax(table, tmp_path, cfg_kw):
-    """The port's passes (bucket partitions, padded when the bucket count
-    does not divide; ggsb blocks of baby indices, sentinel-padded to one
-    shape) equal a JAX BsgsEngine's `_passes` on the same table."""
+    """The port's passes equal a JAX BsgsEngine's `_passes` on the same
+    table: a bucket partition (padded when the bucket count does not
+    divide) as its slab piece, its base and the decode of every padded
+    position of it; a ggsb block of baby indices (sentinel-padded to one
+    shape) as its arrays."""
     eng = _engine(table, [9000], 1, 16384, tmp_path, **cfg_kw)
     jeng = _jax_engine(table, cfg_kw, [9000], tmp_path)
     assert len(eng._passes) == len(jeng._passes) > 1
-    for got, want in zip(eng._passes, jeng._passes):
-        assert got[0] == want[0]
-        if got[0] == "part":
-            np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
-            assert got[2] == want[2] and got[4] == want[4]
-            np.testing.assert_array_equal(got[3], want[3])
+    for (tbl, part, parts), want in zip(eng._passes, jeng._passes):
+        if want[0] == "part":
+            _, jslab, jbase, jstarts, jshift = want
+            assert tbl is table and parts == len(jeng._passes)
+            np.testing.assert_array_equal(
+                bucket_piece(table.packed()[0], parts, part), np.asarray(jslab))
+            res = tbl.resident([CPU], part=part, parts=parts)
+            np.testing.assert_array_equal(res.slabs[0].numpy().view(np.uint32),
+                                          np.asarray(jslab))
+            assert res.bases == [jbase] and res.shift == jshift
+            for pos in range(jbase * res.maxlen, (jbase + len(jslab)) * res.maxlen):
+                assert res.pos_to_j(pos) == jb.decode_packed_pos(
+                    pos, jstarts, res.maxlen, table.perm), pos
         else:
+            assert want[0] == "tbl" and (part, parts) == (0, 1)
             for name, arr in zip(("t0", "t1", "perm"), want[1:]):
-                np.testing.assert_array_equal(getattr(got[1], name), arr)
-    parts, starts, shift = bsgs.bucket_partitions(table, 3)
-    jparts, jstarts, jshift = jb.bucket_partitions(jeng.tbl, 3)
-    assert shift == jshift and (starts == jstarts).all()
-    for (s, b), (js, jbase) in zip(parts, jparts):
-        np.testing.assert_array_equal(s, js)
-        assert b == jbase
+                np.testing.assert_array_equal(getattr(tbl, name), arr)
 
 
 def test_ranged_giant_step_matches_jax(table):
     """One dispatch against each of two bucket partitions (keyhunt_tpu's
-    `run_ranged`): the same payloads and states, and the partitions' hits
-    add up to the whole slab's."""
+    `run_ranged` on its `bucket_partitions`, the port's step on each
+    partition's `Resident`): the same payloads and states, and the
+    partitions' hits add up to the whole slab's."""
     jt = jb.BabyTable(m=table.m, t0=table.t0, t1=table.t1, perm=table.perm)
     cfg_j = jb.BsgsConfig(m=M, lanes=4, steps=2)
     cfg = bsgs.BsgsConfig(m=M, lanes=4, steps=2)
@@ -343,15 +350,14 @@ def test_ranged_giant_step_matches_jax(table):
     px, py = bsgs.seed_lanes(cfg, targets, 1 + M)
     z = np.zeros_like(px)
     z[0] = 1
-    parts, _, shift = bsgs.bucket_partitions(table, 2)
+    jparts, _, shift = jb.bucket_partitions(jt, 2)
     jfn = jb.make_giant_step_fn(cfg_j, len(targets), shift, ranged=True)
-    fn = bsgs.make_giant_step_fn(cfg, shift)
     K, counts = cfg.max_hits, []
-    for slab, base in parts:
+    for part, (jslab, jbase) in enumerate(jparts):
         jX, jY, jZ, jpay = jfn(jnp.asarray(px), jnp.asarray(py), jnp.asarray(z),
-                              jnp.asarray(slab), jnp.int32(base))
-        X, Y, Z, pay = fn(*(u256.to_torch(a) for a in (px, py, z)),
-                          u256.to_torch(np.asarray(slab)), base)
+                              jnp.asarray(jslab), jnp.int32(jbase))
+        fn = bsgs.make_giant_step_fn(cfg, table.resident([CPU], part=part, parts=2))
+        X, Y, Z, pay = fn(*(u256.to_torch(a) for a in (px, py, z)))
         jpay = np.asarray(jpay)
         want = np.concatenate([jpay[:K].view(np.int32).astype(np.int64),
                                jpay[K:2 * K].astype(np.int64),
@@ -361,8 +367,8 @@ def test_ranged_giant_step_matches_jax(table):
         for a, b in ((X, jX), (Y, jY), (Z, jZ)):
             assert u256.to_ints(field.norm(a)) == \
                 [v % field.P_INT for v in u256.to_ints(np.asarray(b))]
-    whole = fn(*(u256.to_torch(a) for a in (px, py, z)),
-               table.device_packed(torch.device("cpu"))[0])[3]
+    whole = bsgs.make_giant_step_fn(cfg, table.resident([CPU]))(
+        *(u256.to_torch(a) for a in (px, py, z)))[3]
     assert sum(counts) == int(whole[2 * K]) >= 1
 
 
@@ -399,8 +405,8 @@ def test_cli_pass_regimes_find_planted_keys(tmp_path, monkeypatch, capsys, extra
 @pytest.mark.parametrize("fmt", ["npz", "d"])
 def test_tables_load_across_packages(table, tmp_path, fmt):
     path = str(tmp_path / f"port.{fmt}")
-    bsgs.save_table(bsgs.table_from_arrays(table.m, table.t0, table.t1,
-                                           table.perm), path=path)
+    bsgs.save_table(table_from_arrays(table.m, table.t0, table.t1, table.perm),
+                    path=path)
     jt = jb.load_table(table.m, path=path)
     for name in ("t0", "t1", "perm"):
         np.testing.assert_array_equal(np.asarray(getattr(jt, name)),
@@ -426,7 +432,7 @@ def test_sizing_helpers_match_jax():
     for n, k in [(None, 1), (1 << 44, 16), (1 << 20, 1)]:
         assert bsgs.derive_m(n, k) == jb.derive_m(n, k)
     for q, maxlen in [(1 << 21, 333), (1 << 21, 768), (4096, 40)]:
-        assert bsgs.probe_chunks_for(q, maxlen) == jb.probe_chunks_for(q, maxlen)
+        assert match.probe_chunks_for(q, maxlen) == jb.probe_chunks_for(q, maxlen)
 
 
 def test_divergence_dropout_drain_finds_every_target(tmp_path):
@@ -503,7 +509,7 @@ def test_divergence_probe_chunks_divide_queries():
     largest power of two dividing the count."""
     cases = [(6, 1 << 30), (3 * (1 << 20), 4096), (5 * 128, 1 << 24)]
     for q, maxlen in cases:
-        assert q % bsgs.probe_chunks_for(q, maxlen) == 0
+        assert q % match.probe_chunks_for(q, maxlen) == 0
     assert any(q % jb.probe_chunks_for(q, maxlen) for q, maxlen in cases)
 
 

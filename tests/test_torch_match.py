@@ -10,7 +10,8 @@ import torch
 from keyhunt_tpu.ops import match as jm
 from keyhunt_tpu_torch import _build
 from keyhunt_tpu_torch.ops import match, u256
-from keyhunt_tpu_torch.search import bsgs, dtable
+from keyhunt_tpu_torch.search import dtable
+from keyhunt_tpu_torch.search.table import decode_packed_pos
 
 
 def _sorted_frags(m, seed=11):
@@ -69,29 +70,21 @@ def _queries(t0, t1, seed=3, n=300):
 @pytest.mark.parametrize("base_row", [0, 40, 100])
 def test_ranged_probes_match_jax(base_row):
     """A partition of up to 60 bucket rows from `base_row` (from 100 only
-    the slab's last 28): hits only for queries of its buckets, global
-    positions, in both the packed and the two-word probe."""
+    the slab's last 28): the packed probe at that base hits only for
+    queries of its buckets, with global positions, as JAX's ranged probe."""
     t0, t1 = _sorted_frags(8192)
     slab, _, shift = match.build_buckets_packed(t0, t1, avg=64)
-    s0, s1, shift2 = match.build_buckets(t0, t1, avg=64)
-    assert shift2 == shift and slab.shape[0] == 128
+    assert slab.shape[0] == 128
     part = slab[base_row:base_row + 60]
-    p0, p1 = s0[base_row:base_row + 60], s1[base_row:base_row + 60]
     w0, w1 = _queries(t0, t1)
     jh, jp = jax.jit(lambda s, a, b, c: jm.probe_buckets_packed_ranged(
         s, a, b, shift, c))(part, w0, w1, jnp.int32(base_row))
-    hit, pos = match.probe_buckets_packed_ranged(_t(part), _t(w0), _t(w1), shift,
-                                                 base_row)
+    hit, pos = match.probe_buckets_packed(_t(part), _t(w0), _t(w1), shift,
+                                          base_row)
     np.testing.assert_array_equal(hit.numpy(), np.asarray(jh))
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jp).astype(np.int64))
     mine = ((w0 >> shift) >= base_row) & ((w0 >> shift) < base_row + 60)
     assert (hit.numpy()[:300] == mine[:300]).all()
-    jh, jp = jax.jit(lambda a0, a1, a, b, c: jm.probe_buckets_ranged(
-        a0, a1, a, b, shift, c))(p0, p1, w0, w1, jnp.int32(base_row))
-    hit, pos = match.probe_buckets_ranged(_t(p0), _t(p1), _t(w0), _t(w1), shift,
-                                          base_row)
-    np.testing.assert_array_equal(hit.numpy(), np.asarray(jh))
-    np.testing.assert_array_equal(pos.numpy(), np.asarray(jp).astype(np.int64))
 
 
 def test_flat_probe_matches_jax():
@@ -101,7 +94,8 @@ def test_flat_probe_matches_jax():
     w0, w1 = _queries(t0, t1, seed=5)
     jh, jp = jax.jit(lambda s, a, b: jm.probe_buckets_packed_flat(
         s, maxlen, a, b, shift))(flat, w0, w1)
-    hit, pos = match.probe_buckets_packed_flat(_t(flat), maxlen, _t(w0), _t(w1), shift)
+    hit, pos = match.probe_buckets_packed(_t(flat).view(-1, maxlen), _t(w0), _t(w1),
+                                          shift)
     np.testing.assert_array_equal(hit.numpy(), np.asarray(jh))
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jp).astype(np.int64))
     assert hit[:300].all()
@@ -162,9 +156,9 @@ def _miss_pos():
     slab = _slab(ROWS)
     w0, w1 = _query(2, 99)
     for hit, pos in (match.probe_buckets_packed(slab, w0, w1, SHIFT),
-                     match.probe_buckets_packed_flat(slab.reshape(-1), 5, w0, w1,
-                                                     SHIFT),
-                     match.probe_buckets_packed_ranged(slab, w0, w1, SHIFT, 0)):
+                     match.probe_buckets_packed(slab.reshape(-1).view(-1, 5), w0,
+                                                w1, SHIFT),
+                     match.probe_buckets_packed(slab[2:], w0, w1, SHIFT, 2)):
         assert hit.tolist() == [False] and pos.tolist() == [2 * 5]
 
 
@@ -184,8 +178,8 @@ def _sentinel():
     assert counts[b] < slab.shape[1]
     hit, pos = match.probe_buckets_packed(_t(slab), *_query(b, S, shift), shift)
     assert hit.tolist() == [True] and pos.tolist() == [b * slab.shape[1] + counts[b]]
-    assert bsgs.decode_packed_pos(int(pos), starts, slab.shape[1],
-                                  np.arange(256)) is None
+    assert decode_packed_pos(int(pos), starts, slab.shape[1],
+                             np.arange(256)) is None
 
 
 def _dtable_unsorted():
@@ -209,8 +203,7 @@ def _ranged_outside():
     of row 3 hits at its global pos."""
     part = _slab(ROWS[2:])
     for bucket, res, want in ((1, 7, (False, 1 * 5)), (3, 33, (True, 3 * 5 + 2))):
-        hit, pos = match.probe_buckets_packed_ranged(part, *_query(bucket, res),
-                                                     SHIFT, 2)
+        hit, pos = match.probe_buckets_packed(part, *_query(bucket, res), SHIFT, 2)
         assert (hit.tolist(), pos.tolist()) == ([want[0]], [want[1]])
 
 
@@ -233,13 +226,13 @@ def test_plain_probes_chunk_their_queries(monkeypatch):
     w1 = _t(np.concatenate([t1[pick], rng.integers(0, 1 << 32, 150, np.uint32)]))
     per = slab.shape[0] // 2
     whole = [match.probe_buckets_packed(slab, w0, w1, shift),
-             match.probe_buckets_packed_ranged(slab[per:], w0, w1, shift, per)]
+             match.probe_buckets_packed(slab[per:], w0, w1, shift, per)]
     sliced = []
     monkeypatch.setattr(match, "probe_chunks_for",
                         lambda q, maxlen: sliced.append(q) or 4)
     for (hit, pos), (h, p) in zip(whole, [
             match.probe_buckets_packed(slab, w0, w1, shift),
-            match.probe_buckets_packed_ranged(slab[per:], w0, w1, shift, per)]):
+            match.probe_buckets_packed(slab[per:], w0, w1, shift, per)]):
         assert torch.equal(h, hit) and torch.equal(p, pos)
     assert sliced == [300, 300] and bool(whole[0][0][:150].all())
 
@@ -251,7 +244,7 @@ def test_cpu_probes_launch_nothing_and_the_kernel_refuses_cpu():
     w0, w1 = _query(1, 9)
     before = dict(_build.LAUNCHES)
     match.probe_buckets_packed(slab, w0, w1, SHIFT)
-    match.probe_buckets_packed_ranged(slab, w0, w1, SHIFT, 0)
+    match.probe_buckets_packed(slab[2:], w0, w1, SHIFT, 2)
     assert dict(_build.LAUNCHES) == before
     with pytest.raises(ValueError, match="expected cuda"):
         match.probe_packed_cuda(slab, w0, w1, SHIFT)

@@ -1,15 +1,17 @@
 """The port's mesh (keyhunt_tpu_torch.parallel) on the CPU:
 
-- the layout helpers `seed_pivots_sharded`, `decode_sharded_hit` and
-  `shard_buckets_packed` (parts 1 and 2, and a table with fewer buckets
-  than shards) equal keyhunt_tpu.parallel's for D in {2, 4, 8};
+- the layout helpers `seed_pivots_sharded` and `decode_sharded_hit`, and
+  the slab's pieces (`search.table.bucket_piece`; parts 1 and 2, and a
+  table with fewer buckets than shards), equal keyhunt_tpu.parallel's
+  (`shard_buckets_packed`) for D in {2, 4, 8};
 - one sharded BSGS step and one sharded walker step over 4 CPU shards
   give exactly the hits (and the next state) of the port's one-device
   step over the same global lanes;
 - `make_mesh` never falls back: more CUDA shards than visible devices
   raise;
 - every kernel launch runs on its operands' card (`_build.launch`), and
-  the whole table's resident shards are uploaded once per mesh.
+  the whole table's resident slabs are uploaded once per device or mesh
+  layout.
 Seeds come from numpy."""
 
 import pathlib
@@ -29,6 +31,7 @@ from keyhunt_tpu_torch.parallel import bsgs_sharded as bs
 from keyhunt_tpu_torch.parallel import mesh
 from keyhunt_tpu_torch.ref import ecc
 from keyhunt_tpu_torch.search import bsgs, walker
+from keyhunt_tpu_torch.search.table import bucket_piece
 
 CPU = torch.device("cpu")
 RNG = np.random.default_rng(20261017)
@@ -62,11 +65,16 @@ def tables():
 def test_shard_buckets_packed_equals_keyhunt_tpu(tables, m, parts, D):
     tbl = tables[m]
     jt = jb.BabyTable(m=tbl.m, t0=tbl.t0, t1=tbl.t1, perm=tbl.perm)
-    slab, starts, shift = bs.shard_buckets_packed(tbl, D, parts=parts)
+    whole, starts, shift = tbl.packed()
+    slab = np.stack([bucket_piece(whole, D * parts, i) for i in range(D * parts)])
+    slab = slab.reshape((D, parts) + slab.shape[1:])
     jslab, jstarts, jshift = jbs.shard_buckets_packed(jt, D, parts=parts)
     assert slab.shape == np.asarray(jslab).shape == (D, parts) + slab.shape[2:]
     assert (slab == np.asarray(jslab)).all()
     assert (starts == np.asarray(jstarts)).all() and shift == jshift
+    res = tbl.resident(mesh.make_mesh(D, "cpu").devices, 0, D, parts - 1, parts)
+    assert all((s.numpy().view(np.uint32) == slab[d, parts - 1]).all()
+               for d, s in enumerate(res.slabs))
 
 
 def test_make_mesh_never_falls_back():
@@ -172,22 +180,23 @@ def test_sharded_bsgs_step_equals_one_device_step(tables, parts):
     jt = jb.BabyTable(m=tbl.m, t0=tbl.t0, t1=tbl.t1, perm=tbl.perm)
     assert jt.packed()[2] == shift
     seen = set()
+    whole = bsgs.make_giant_step_fn(one, tbl.resident([CPU]))
     for part in range(parts):
-        shards = bs.resident_shards(tbl, msh, part, parts)
-        Xs, Ys, Zs, payload = bs.make_sharded_giant_step(cfg, shards, msh, T)(
-            *(_split(c, D) for c in cols))
+        shards = tbl.resident(msh.devices, msh.first, msh.size, part, parts)
+        Xs, Ys, Zs, payload = bs.make_sharded_giant_step(
+            cfg, shards, msh, T, bsgs.DEGEN_SLOTS)(*(_split(c, D) for c in cols))
         got = _bsgs_hits(payload.numpy(), K, T, B, D, S, 4, True)
-        step1 = bsgs.make_giant_step_fn(one, shift)
         state = [u256.to_torch(a) for a in (px, py, z)]
         if parts == 1:
-            X, Y, Z, opay = step1(*state, to_device(slab, CPU))
+            X, Y, Z, opay = whole(*state)
         else:           # the same pieces, as one device's ranged probes
             pay = []
             for d in range(D):
-                rows = bs.shard_buckets_packed(tbl, D, parts=parts)[0][d, part]
-                pay.append(step1(*state, to_device(np.ascontiguousarray(rows), CPU),
-                                 shards.bases[d])[3])
-            X, Y, Z = step1(*state, to_device(slab, CPU))[:3]
+                piece = tbl.resident([CPU], 0, 1, d * parts + part, D * parts)
+                assert piece.bases == [shards.bases[d]]
+                assert torch.equal(piece.slabs[0], shards.slabs[d])
+                pay.append(bsgs.make_giant_step_fn(one, piece)(*state)[3])
+            X, Y, Z = whole(*state)[:3]
             opay = _merge_one_device(pay, K, S)
         want = _bsgs_hits(opay.numpy(), K, T, B, D, S, 4, False)
         assert got == want
@@ -270,17 +279,28 @@ def test_kernel_operands_on_two_cards_refused():
 
 
 def test_resident_shards_cached_for_the_whole_table(tables):
-    """With `cache`, the whole table's shards are uploaded once per mesh
-    layout (a fresh Mesh of the same layout finds them); a partition's
-    piece, or a call without `cache`, is uploaded anew."""
+    """The whole table's slabs are uploaded once per device or mesh layout
+    (a fresh Mesh of the same layout finds them, one device's are the
+    slab `device_packed` hands out); a partition's piece, or a call
+    without `cache`, is uploaded anew."""
     tbl = bsgs.build_baby_table(256, device="cpu")
-    one = bs.resident_shards(tbl, mesh.make_mesh(devices=[CPU] * 4), cache=True)
-    assert bs.resident_shards(tbl, mesh.make_mesh(4, "cpu"), cache=True) is one
-    assert bs.resident_shards(tbl, mesh.make_mesh(2, "cpu"), cache=True) is not one
-    assert len(tbl.__dict__["_dev_shards"]) == 2
-    assert bs.resident_shards(tbl, mesh.make_mesh(4, "cpu")) is not one
-    piece = bs.resident_shards(tbl, mesh.make_mesh(4, "cpu"), 1, 2, cache=True)
-    assert len(tbl.__dict__["_dev_shards"]) == 2
-    fresh = bs._upload_shards(tbl, mesh.make_mesh(4, "cpu"), 1, 2)
-    assert piece.bases == fresh.bases
+    lay = lambda msh: (msh.devices, msh.first, msh.size)     # noqa: E731
+    one = tbl.resident(*lay(mesh.make_mesh(devices=[CPU] * 4)))
+    assert tbl.resident(*lay(mesh.make_mesh(4, "cpu"))) is one
+    assert tbl.resident(*lay(mesh.make_mesh(2, "cpu"))) is not one
+    assert len(tbl._resident) == 2
+    assert tbl.resident(*lay(mesh.make_mesh(4, "cpu")), cache=False) is not one
+    piece = tbl.resident(*lay(mesh.make_mesh(4, "cpu")), 1, 2)
+    assert len(tbl._resident) == 2
+    fresh = tbl.resident(*lay(mesh.make_mesh(4, "cpu")), 1, 2)
+    assert piece is not fresh and piece.bases == fresh.bases
     assert all(torch.equal(a, b) for a, b in zip(piece.slabs, fresh.slabs))
+    # one device: the same cache, keyed by the device as given
+    dev = tbl.resident([CPU])
+    assert tbl.resident([CPU]) is dev and len(tbl._resident) == 3
+    slab, starts, shift = tbl.device_packed(CPU)
+    assert slab is dev.slabs[0] and shift == dev.shift and dev.bases == [0]
+    assert tbl.resident([CPU], part=1, parts=2) is not tbl.resident([CPU], part=1, parts=2)
+    assert len(tbl._resident) == 3
+    tbl.resident([torch.device("cpu", 0)])
+    assert len(tbl._resident) == 4

@@ -82,10 +82,7 @@ def test_p1_equals_plain_probe(cuda, kind):
     if kind == "unaligned":
         assert slab.data_ptr() % 8 == 4 and slab.shape[1] % 2 == 1
     host = slab.cpu()
-    if base is None:
-        want = match.probe_buckets_packed_plain(host, w0, w1, shift)
-    else:
-        want = match.probe_buckets_packed_ranged_plain(host, w0, w1, shift, base)
+    want = match.probe_buckets_packed_plain(host, w0, w1, shift, base or 0)
     got = match.probe_packed_cuda(slab, w0.to(cuda), w1.to(cuda), shift, base or 0)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0])

@@ -79,10 +79,11 @@ def test_http_headers(srv):
 def test_engines_share_one_slab_upload(srv):
     """Every request's engine binds the table's cached slab: one upload."""
     pclient.BsgsdClient("127.0.0.1", srv.port, timeout=300).query(_pub(KEY), 1, 4096)
-    cache = srv.tbl.__dict__["_dev_packed"]
-    slab = cache[torch.device("cpu")][0]
+    cache = srv.tbl._resident
+    key = ((torch.device("cpu"),), 0, 1)
+    slab = cache[key].slabs[0]
     pclient.BsgsdClient("127.0.0.1", srv.port, timeout=300).query(_pub(KEY), 1, 4096)
-    assert list(cache) == [torch.device("cpu")] and cache[torch.device("cpu")][0] is slab
+    assert list(cache) == [key] and cache[key].slabs[0] is slab
 
 
 def test_client_helpers_match_jax(srv, tmp_path):
@@ -194,6 +195,7 @@ def test_mesh_engines_share_one_shard_upload(tmp_path):
     s = server.BsgsdServer(tbl, port=0, lanes=4, steps=2, device="cpu",
                            devices=2, result_path=str(tmp_path / "found.txt"))
     assert s.search(_pub(KEY), 1, 16384) == KEY
-    (shards,) = tbl.__dict__["_dev_shards"].values()
+    (shards,) = tbl._resident.values()
+    assert len(shards.slabs) == 2
     assert s.search(_pub(KEY), 1, 8192) == KEY
-    assert list(tbl.__dict__["_dev_shards"].values()) == [shards]
+    assert list(tbl._resident.values()) == [shards]
