@@ -963,6 +963,7 @@ _REPORT_FIELDS = (
      r"hits, (\d+) false positives",
      ("dispatches", "giant_points", "search_s", "ms_per_dispatch",
       "giant_points_per_s", "probe_hits", "false_positives")),
+    (r"(\d+) graph captures, (\d+) graph replays", ("graph_captures", "graph_replays")),
     (r"(\d+) find_j re-walks in ([\d.]+) s", ("find_j_calls", "find_j_s")),
 )
 
@@ -981,13 +982,20 @@ def _report(run: dict) -> dict:
 
 def _held(name: str, run: dict, planted: list) -> None:
     """A BSGS run must have found exactly its planted keys and launched
-    K1-K4 and P1 itself."""
+    K1-K4 and P1 itself, K4 and P1 at least once a dispatch: the launch
+    counts hold the step's CUDA graph replays too."""
     if run["rc"] != 0 or run["found"] != sorted(planted):
         raise AssertionError(f"{name}: rc {run['rc']}, found {run['found']}, "
                              f"planted {sorted(planted)}")
     missing = [k for k in BSGS_KERNELS if run["launches"].get(k, 0) < 1]
     if missing:
         raise AssertionError(f"{name}: kernels never launched in its run: {missing}")
+    dispatches = _report(run).get("dispatches", 0)
+    short = {k: run["launches"][k] for k in ("giant_scan", "probe_packed")
+             if run["launches"][k] < dispatches}
+    if short:
+        raise AssertionError(f"{name}: launches {short} counted for {dispatches} "
+                             f"dispatches")
 
 
 def phase_e2e():
@@ -1391,7 +1399,7 @@ def _engine_run(name: str, make, planted: list, **run_kw) -> dict:
            "found": sorted(found.values() if isinstance(found, dict)
                            else eng.found_keys)}
     for attr in ("dispatches", "giant_points", "probe_hits", "false_hits",
-                 "run_seconds"):
+                 "graph_captures", "graph_replays", "run_seconds"):
         if hasattr(eng, attr):
             run[attr] = getattr(eng, attr)
     if run["found"] != sorted(planted):

@@ -14,6 +14,7 @@ package on machines with no compiler.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,11 +53,13 @@ _SIGNATURES = {
 }
 
 #: kernel launches by kernel name, and by (kernel name, elements per
-#: launch); each wrapper adds one to both where it launches (`count_launch`)
+#: launch); each wrapper adds one to both where it launches (`count_launch`),
+#: and each replay of a CUDA graph what its capture recorded (`graphs`)
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_WIDTHS: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+_recording = threading.local()
 _libs: dict[str, ctypes.CDLL] = {}
 #: what the last build did: seconds, directory, ptxas report per source
 BUILD_INFO: dict = {}
@@ -70,9 +73,35 @@ def reset_launches() -> None:
 def count_launch(name: str, n) -> None:
     """Count one launch of kernel `name` at width n: its element (lane)
     count, for K4 the pair (lanes, steps), for P1 the pair (queries,
-    maxlen)."""
+    maxlen). Inside `recording_launches` it goes to the record instead."""
+    record = getattr(_recording, "launches", None)
+    if record is not None:
+        record[name, n] += 1
+        return
     LAUNCHES[name] += 1
     LAUNCH_WIDTHS[name, n] += 1
+
+
+def add_launches(widths: collections.Counter) -> None:
+    """Count launches by (kernel name, width), as a record of
+    `recording_launches` holds them."""
+    for (name, n), count in widths.items():
+        LAUNCHES[name] += count
+        LAUNCH_WIDTHS[name, n] += count
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's `count_launch` calls add to the
+    Counter it yields, by (kernel name, width), and not to `LAUNCHES`: a
+    CUDA graph's capture launches nothing, and each of its replays adds
+    the record (`add_launches`)."""
+    outer = getattr(_recording, "launches", None)
+    _recording.launches = record = collections.Counter()
+    try:
+        yield record
+    finally:
+        _recording.launches = outer
 
 
 def _source_hash() -> str:

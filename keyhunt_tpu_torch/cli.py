@@ -353,7 +353,9 @@ def run_bsgs_cli(args, device: torch.device) -> int:
               f"{eng.giant_points / secs:.4e} giant points/s, drains "
               f"included); {eng.probe_hits} probe hits, {eng.false_hits} "
               f"false positives, {eng.ec_checks} EC checks "
-              f"({eng.oracle_checks} on the Python oracle)", flush=True)
+              f"({eng.oracle_checks} on the Python oracle); "
+              f"{eng.graph_captures} graph captures, {eng.graph_replays} "
+              f"graph replays", flush=True)
         if args.dtable:
             print(f"[+] device table: {tbl.find_j_calls} find_j re-walks in "
                   f"{tbl.find_j_seconds:.3f} s", flush=True)

@@ -18,7 +18,8 @@ and this port follows the code.
 
 `giant_scan` launches kernel K4 (``csrc/jacwalk.cu``) for CUDA tensors and
 runs `giant_scan_plain` for CPU tensors. `giant_walk_fn` is the walk stage
-of both BSGS giant steps, one device's and the mesh's.
+of the mesh's BSGS giant step; the one-device step (`search.bsgs.GiantStep`)
+runs `giant_scan` and `to_affine_x` as stages of their own.
 """
 
 from __future__ import annotations
@@ -113,8 +114,8 @@ def to_affine_x(Xs, Zs):
 
 
 def giant_walk_fn(advance: int, steps: int):
-    """The walk stage of a BSGS giant step: run(X, Y, Z) -> (X', Y', Z',
-    xa, dg), the lanes after `steps` steps of -advance*G (`giant_scan`),
+    """The walk stage of the mesh's BSGS giant step: run(X, Y, Z) -> (X',
+    Y', Z', xa, dg), the lanes after `steps` steps of -advance*G (`giant_scan`),
     the canonical affine X (8, steps*L) of every emitted point
     (`to_affine_x`) and the (steps, L) degenerate-lane mask, in the spans
     bsgs.giant_scan and bsgs.to_affine."""

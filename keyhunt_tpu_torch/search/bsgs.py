@@ -42,7 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import native, runtime
+from .. import graphs, native, runtime
 from ..device import resolve_device, to_device
 from ..io.results import ResultSink
 from ..ops import jacwalk, match, u256
@@ -99,39 +99,113 @@ class BsgsConfig:
         return max(count, 1), max(size, 1)
 
 
-def make_giant_step_fn(cfg: BsgsConfig, resident, degen_slots: int = DEGEN_SLOTS):
-    """The giant step over T*B Jacobian lanes on the pass's slab
-    `resident` (a `search.table.Resident` of one device): run(X, Y, Z) ->
-    (X', Y', Z', payload).
+#: eager calls at one shape before a step captures its CUDA graphs: the
+#: first warms the allocator and the top-k's own state
+GRAPH_AFTER_CALLS = 2
 
-    K4 walks S steps and emits (X, Z) per step; `to_affine_x` (K3, K2, K1,
-    norm) gives canonical affine X for all S*L queries
-    (`jacwalk.giant_walk_fn`); the packed probe (kernel P1 on CUDA) runs
-    over all queries at once against the slab, which holds global bucket
-    rows [base, base + rows) (the whole table at base 0, a partition
-    elsewhere: keyhunt_tpu's `run_ranged`; positions stay global); hits
-    and degenerate lanes are extracted on the device with no host sync.
+
+def _eager(name: str, fn, *args):
+    with span(name):
+        return fn(*args)
+
+
+class GiantStep:
+    """The giant step over T*B Jacobian lanes on the pass's slab
+    `resident` (a `search.table.Resident` of one device): step(X, Y, Z)
+    -> (X', Y', Z', payload).
+
+    Four stages, each inside a `trace.span` of its name: bsgs.giant_scan
+    (K4 walks S steps and emits (X, Z) per step), bsgs.to_affine
+    (`jacwalk.to_affine_x`: K3, K2, K1, norm give canonical affine X for
+    all S*L queries), bsgs.probe (the packed probe, kernel P1 on CUDA, over
+    all queries at once against the slab, which holds global bucket rows
+    [base, base + rows): the whole table at base 0, a partition elsewhere,
+    keyhunt_tpu's `run_ranged`; positions stay global) and bsgs.topk (hits
+    and degenerate lanes extracted on the device with no host sync).
     payload is one int64 vector, [lanes(K) | jsel(K) | count(1) |
     flags(S*D)]: flat query indices of the first K hits, their padded slab
     positions, the hit count, and per step the first D = `degen_slots`
-    flagged lanes (-1 pad). Each stage runs inside a `trace.span` named
-    "bsgs.<stage>"."""
-    K = cfg.max_hits
-    walk = jacwalk.giant_walk_fn(cfg.lanes * cfg.stride, cfg.steps)
-    (slab,), (base,), shift = resident.slabs, resident.bases, resident.shift
+    flagged lanes (-1 pad).
 
-    def run(X, Y, Z):
-        Xo, Yo, Zo, xa, dg = walk(X, Y, Z)
-        w0, w1 = xa[7], xa[6]                         # step-major queries
-        with span("bsgs.probe"):
-            hit, pos = match.probe_buckets_packed(slab, w0, w1, shift, base)
-        with span("bsgs.topk"):
-            flags = match.first_set(dg, degen_slots)
-            lanes, jsel, count = match.topk_with_payload(hit, pos, K)
-            payload = torch.cat([lanes, jsel, count, flags.reshape(-1)])
+    With `capture`, a step on CUDA tensors that has run eagerly
+    `GRAPH_AFTER_CALLS` times in a row at one shape captures its four
+    stages as CUDA graphs (`graphs.StageGraphs`) and replays them on every
+    later call at that shape; another shape is run eagerly and counted
+    afresh. The graphs read the lanes from static inputs and write the new
+    lanes back over them: a call copies X, Y, Z in unless they are the
+    last call's outputs, and its outputs (the static inputs and the
+    payload) are rewritten by the next call. Captures and replayed calls
+    are counted in `counts` (a `graphs.Counts`: the engine's, or the
+    step's own)."""
+
+    def __init__(self, cfg: BsgsConfig, resident, degen_slots: int = DEGEN_SLOTS,
+                 capture: bool = True, counts=None):
+        self.cfg, self.degen_slots, self.capture = cfg, degen_slots, capture
+        self.counts = graphs.Counts() if counts is None else counts
+        self._advance = ecc.ec_neg(ecc.ec_mul(cfg.lanes * cfg.stride))
+        (self._slab,), (self._base,), self._shift = (resident.slabs, resident.bases,
+                                                     resident.shift)
+        self._shape, self._calls = None, 0
+        self._captured = self._inputs = self._outputs = None
+
+    def _stages(self, X, Y, Z, stage=_eager, scan=None):
+        """The step, each stage run as stage(span name, fn, *args); `scan`
+        replaces the walk stage's function."""
+        Xo, Yo, Zo, xs, zs, dg = stage("bsgs.giant_scan", scan or self._scan, X, Y, Z)
+        xa = stage("bsgs.to_affine", jacwalk.to_affine_x, xs, zs)
+        hit, pos = stage("bsgs.probe", self._probe, xa)
+        payload = stage("bsgs.topk", self._topk, dg, hit, pos)
         return Xo, Yo, Zo, payload
 
-    return run
+    def _scan(self, X, Y, Z):
+        return jacwalk.giant_scan(X, Y, Z, *self._advance, self.cfg.steps)
+
+    def _scan_into(self, X, Y, Z):
+        """The walk, with the lanes' new state written back over X, Y, Z."""
+        *lanes, xs, zs, dg = self._scan(X, Y, Z)
+        for buf, new in zip((X, Y, Z), lanes):
+            buf.copy_(new)
+        return X, Y, Z, xs, zs, dg
+
+    def _probe(self, xa):
+        w0, w1 = xa[7], xa[6]                         # step-major queries
+        return match.probe_buckets_packed(self._slab, w0, w1, self._shift, self._base)
+
+    def _topk(self, dg, hit, pos):
+        flags = match.first_set(dg, self.degen_slots)
+        lanes, jsel, count = match.topk_with_payload(hit, pos, self.cfg.max_hits)
+        return torch.cat([lanes, jsel, count, flags.reshape(-1)])
+
+    def __call__(self, X, Y, Z):
+        if not (self.capture and graphs.capturable(X)):
+            return self._stages(X, Y, Z)
+        if X.shape != self._shape:
+            self._shape, self._calls, self._captured = X.shape, 0, None
+        if self._captured is None:
+            self._calls += 1
+            if self._calls <= GRAPH_AFTER_CALLS:
+                return self._stages(X, Y, Z)
+            self._capture(X, Y, Z)
+        for buf, lanes in zip(self._inputs, (X, Y, Z)):
+            if lanes.data_ptr() != buf.data_ptr():
+                buf.copy_(lanes)
+        self._captured.replay()
+        self.counts.replays += 1
+        return self._outputs
+
+    def _capture(self, X, Y, Z):
+        self._captured = graphs.StageGraphs(X.device)
+        self._inputs = tuple(t.clone(memory_format=torch.contiguous_format)
+                             for t in (X, Y, Z))
+        self._outputs = self._stages(*self._inputs, stage=self._captured.capture,
+                                    scan=self._scan_into)
+        self.counts.captures += 1
+
+
+def make_giant_step_fn(cfg: BsgsConfig, resident, degen_slots: int = DEGEN_SLOTS,
+                       capture: bool = True, counts=None) -> GiantStep:
+    """The one-device giant step (`GiantStep`) of `cfg` on `resident`."""
+    return GiantStep(cfg, resident, degen_slots, capture, counts)
 
 
 def seed_lanes(cfg: BsgsConfig, targets: list, c0: int, on_exact=None,
@@ -199,11 +273,13 @@ class BsgsEngine:
     `false_hits` (probe hits that verified no key), `ec_checks` (candidate
     keys whose point was computed to check them, re-runs included),
     `oracle_checks` (those the Python oracle computed, where the native
-    library is not built) and `run_seconds` (the last `run()`'s wall
-    time, drains included). Its host stages run in `trace.span`s:
-    bsgs.run, .seed, .dispatch (around the step's spans), .fetch,
-    .drain_wait (the wait on the device alone), .decode, .rerun and
-    .dropout."""
+    library is not built), `graph_captures` (captures of the one-device
+    step's CUDA graphs, one a step fn and shape: `GiantStep`),
+    `graph_replays` (dispatches that replayed them) and `run_seconds`
+    (the last `run()`'s wall time, drains included). Its host stages run
+    in `trace.span`s: bsgs.run, .seed, .dispatch (around the step's
+    spans), .fetch, .drain_wait (the wait on the device alone), .decode,
+    .rerun and .dropout."""
 
     #: in-flight dispatches before the oldest payload is drained
     PIPELINE = 3
@@ -238,6 +314,7 @@ class BsgsEngine:
         self.dispatches = self.giant_points = 0
         self.probe_hits = self.false_hits = 0
         self.ec_checks = self.oracle_checks = 0
+        self.graph_counts = graphs.Counts()
         self.run_seconds = 0.0
         self._passes = self._build_passes()
         self._set_pass(self._passes[0])
@@ -290,13 +367,13 @@ class BsgsEngine:
     def _set_pass(self, entry):
         """Make pass `entry` = (table, part, parts) current: its `Resident`
         slabs on this engine's device, or one piece a shard on the mesh.
-        The previous pass's slabs, and the step fns holding them, are
-        released before this pass's are uploaded, so one partition (or
-        ggsb block) is resident at a time; the whole table's stay cached
-        on the table, so engines sharing it (the daemon's) upload them
-        once. Binds the pass's host decode `_pos_to_j` (padded slab
-        position -> baby index, None for a sentinel) and builds the step
-        fn."""
+        The previous pass's slabs, and the step fns holding them (with
+        their CUDA graphs), are released before this pass's are uploaded,
+        so one partition (or ggsb block) is resident at a time; the whole
+        table's stay cached on the table, so engines sharing it (the
+        daemon's) upload them once. Binds the pass's host decode
+        `_pos_to_j` (padded slab position -> baby index, None for a
+        sentinel) and builds the step fn."""
         self._pass = entry
         self._resident = self.step_fn = None
         self._wide_fns = {}
@@ -307,14 +384,26 @@ class BsgsEngine:
         self._pos_to_j = self._resident.pos_to_j
         self._set_step()
 
-    def _make_step(self, cfg, degen_slots: int = DEGEN_SLOTS):
+    def _make_step(self, cfg, degen_slots: int = DEGEN_SLOTS, capture: bool = True):
+        """A step fn of this pass: the mesh's (eager), or the one-device
+        `GiantStep`, which captures CUDA graphs where `capture` holds."""
         if self.mesh:
             return make_sharded_giant_step(cfg, self._resident, self.mesh,
                                            len(self.targets), degen_slots)
-        return make_giant_step_fn(cfg, self._resident, degen_slots)
+        return make_giant_step_fn(cfg, self._resident, degen_slots, capture,
+                                  self.graph_counts)
+
+    @property
+    def graph_captures(self) -> int:
+        return self.graph_counts.captures
+
+    @property
+    def graph_replays(self) -> int:
+        return self.graph_counts.replays
 
     def _set_step(self):
-        """The step fn for the current lanes and targets."""
+        """The step fn for the current lanes and targets (a new one: the
+        old one's CUDA graphs go with it)."""
         self.step_fn = self._make_step(self.cfg)
         self._wide_fns = {}     # (K, D) -> step fn of a block re-run
 
@@ -363,7 +452,8 @@ class BsgsEngine:
                   f"block re-run with {K} hit slots", flush=True)
             if (K, D) not in self._wide_fns:
                 self._wide_fns[K, D] = self._make_step(
-                    dataclasses.replace(self.cfg, max_hits=K), degen_slots=D)
+                    dataclasses.replace(self.cfg, max_hits=K), degen_slots=D,
+                    capture=False)
             payload = self._wide_fns[K, D](*self._seed(c0))[3]
             self._decode(c0, payload.cpu().numpy(), K, D)
 

@@ -91,13 +91,16 @@ def test_p1_equals_plain_probe(cuda, kind):
 
 
 def test_one_probe_launch_per_bsgs_dispatch(cuda, tmp_path):
+    """One P1 launch counted a dispatch, the step's CUDA graph replays
+    included: the first key drops out after the step has captured."""
     m = 1 << 12
     tbl = bsgs.build_baby_table(m, pivots=2, width=32, steps=2, device=cuda)
-    keys = [3 * m + 77, 40 * m + 5]
+    keys = [3 * m + 77, 5000 * m + 5]
     cfg = bsgs.BsgsConfig(m=m, lanes=64, steps=4)
     sink = ResultSink(path=os.path.join(tmp_path, "found.txt"), quiet=True)
-    eng = bsgs.BsgsEngine(cfg, tbl, [ecc.pubkey(k) for k in keys], 1, 1 << 24,
+    eng = bsgs.BsgsEngine(cfg, tbl, [ecc.pubkey(k) for k in keys], 1, 1 << 26,
                           sink=sink, quiet=True, device=cuda)
     before = _build.LAUNCHES["probe_packed"]
     assert sorted(eng.run().values()) == sorted(keys)
     assert _build.LAUNCHES["probe_packed"] - before == eng.dispatches > 0
+    assert eng.graph_captures >= 1 and eng.graph_replays >= 1
